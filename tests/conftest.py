@@ -24,6 +24,11 @@ except ModuleNotFoundError:  # tier-1 collects without hypothesis installed
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a host without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
