@@ -5,24 +5,34 @@
 
 Phases, each failing loudly (non-zero exit, no result line):
 
-1. card     -- the card's name and power limit, torch and CUDA versions;
-2. build    -- compile the support-core CUDA kernel from the checkout's
-               sources (``nvcc``, ``sm_90a``) and print the build time;
-3. kernel   -- the kernel against its plain PyTorch version on the card,
-               bit for bit: directed cases, the sweep shapes, a large shape
-               that takes the kernel's global-memory path, and a 50-burst
-               seeded trace with state carried; times per launch at the
-               serving shape and the large shape beside the plain version
-               and the byte bound;
-4. serve    -- deepseek-7b at its published widths (bf16, random weights
+1.  card     -- the card's name and power limit, torch and CUDA versions;
+2.  build    -- compile the three CUDA kernels from the checkout's sources
+               (one ``nvcc`` each, ``sm_90a``, started together) and print
+               each build time;
+3.  kernels  -- each kernel against its plain PyTorch version on the card:
+               the support-core burst bit for bit (directed cases, the
+               sweep shapes, a large shape, a 50-burst trace); paged decode
+               attention and flash prefill attention over the JAX sweeps in
+               f32 and bf16, the serving shapes of both configurations, the
+               NO_BLOCK slot, shared vs private tables (bit-identical), the
+               self mode on a pool layer with inactive lanes and a page
+               boundary, and a ragged Tq; then times per launch at the
+               serving shapes beside the plain version, the bound and, for
+               flash, ``scaled_dot_product_attention`` (timed here only);
+4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
-               the port's scheduler and engine; every support-core burst of
-               that run must be a kernel launch, and the allocator
-               invariants must hold with no live page at the end;
-5. device   -- the same requests at the reduced config in f32 (TF32 off)
-               through the port on ``cuda`` and on ``cpu``: allocator state
-               and served tokens must be identical;
-6. result   -- one JSON line describing the kernels, then the last line
+               the port's scheduler and engine: every support-core burst,
+               decode attention and prefill attention of that run must be
+               a kernel launch, and the allocator invariants must hold with
+               no live page at the end;
+4b. serve    -- gemma3-1b at its published widths (26 layers, windows of
+               512 on five layers in six, GQA 4:1) the same way, with
+               prompts of 600-1500 tokens so the window binds;
+5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
+               through the port on ``cuda`` and on ``cpu``, for both
+               architectures: allocator state and served tokens must be
+               identical;
+6.  result   -- one JSON line describing the kernels, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -30,6 +40,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,9 +56,26 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM non-tensor f32 rate, per data sheet
-SERVE_ARCH = "deepseek-7b"
-SERVE_LANES, SERVE_PAGE, SERVE_SEQ = 4, 8, 256
-SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 16
+TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+FULL = 1 << 30                 # "no window"
+SERVE_LANES = 4
+# per architecture: pool shape, prompt mix and generation length
+WORKLOADS = {
+    "deepseek-7b": dict(seq=256, page=8, max_prompt=128, requests=8,
+                        new_tokens=16, prompt_lens=None),
+    "gemma3-1b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
+                      new_tokens=32, prompt_lens=(600, 1500)),
+}
+# the reduced configs of phase 5 (gemma3: one local and one global layer)
+SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
+SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128)}
+# the JAX kernel tests' sweeps (tests/test_kernels.py)
+PAGED_SWEEP = [(3, 2, 4, 32, 8, 5), (2, 1, 8, 64, 16, 4), (2, 4, 1, 128, 8, 6),
+               (1, 2, 2, 16, 4, 3)]
+FLASH_SWEEP = [(32, 32, 4, 2, 32, True, FULL), (64, 64, 4, 1, 64, True, 24),
+               (32, 32, 2, 2, 32, False, FULL), (64, 64, 8, 2, 128, True, FULL)]
+TOL = {"paged": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+       "flash": {torch.float32: 2e-5, torch.bfloat16: 3e-2}}
 
 
 def fail(msg: str) -> None:
@@ -55,7 +83,7 @@ def fail(msg: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 3 helpers: kernel vs plain version
+# phase 3, support core: kernel vs plain version
 # --------------------------------------------------------------------------
 
 def random_queue(rng, Q, C, N, R, dev, ops=None, lanes=8):
@@ -241,22 +269,234 @@ def time_burst(dev, Q, C, N, R, caps) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3, attention: kernels against their plain versions on the card
+# --------------------------------------------------------------------------
+
+class Errors:
+    """Largest |kernel - plain| per kernel over every case checked."""
+
+    def __init__(self):
+        self.max = {"paged": 0.0, "flash": 0.0}
+
+    def check(self, kind, what, got, want, dtype):
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= TOL[kind][dtype]:        # NaN fails too
+            fail(f"{kind} kernel != plain on {what}: max abs err {err:.3e} "
+                 f"> {TOL[kind][dtype]}")
+        self.max[kind] = max(self.max[kind], err)
+
+
+def rand(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                           device=dev).to(dtype)
+
+
+def paged_pool_case(rng, dev, dtype, B, KV, G, hd, ps, P, L, seq, active):
+    """A port-shaped pool ``[N + 1, L, ps, KV, hd]`` (read through layer
+    1's view), tables with lane i's pages granted for ``pos < seq[i]``, the
+    rest NO_BLOCK, and the new tokens' queries and K/V."""
+    n = B * P + 1
+    pool_k = rand(rng, (n + 1, L, ps, KV, hd), dtype, dev)
+    pool_v = rand(rng, (n + 1, L, ps, KV, hd), dtype, dev)
+    perm = rng.permutation(n)[:B * P].reshape(B, P)
+    used = np.arange(P)[None, :] * ps < np.asarray(seq)[:, None]
+    tables = torch.as_tensor(np.where(used, perm, -1).astype(np.int32),
+                             device=dev)
+    return dict(q=rand(rng, (B, KV * G, hd), dtype, dev),
+                k_pages=pool_k[:, 1], v_pages=pool_v[:, 1],
+                block_tables=tables,
+                seq_lens=torch.as_tensor(np.asarray(seq, np.int32),
+                                         device=dev),
+                k_self=rand(rng, (B, KV, hd), dtype, dev),
+                v_self=rand(rng, (B, KV, hd), dtype, dev),
+                active=torch.as_tensor(np.asarray(active, bool), device=dev))
+
+
+def paged_args(case, window, self_mode):
+    keys = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
+    args = [case[k] for k in keys] + [window]
+    extra = {k: case[k] for k in ("k_self", "v_self", "active")} \
+        if self_mode else {}
+    return args, extra
+
+
+def paged_parity(dev, errs: Errors) -> None:
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as op
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    rng = np.random.RandomState(0)
+    n_cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for B, KV, G, hd, ps, P in PAGED_SWEEP:
+            for window in (FULL, 19):
+                seq = rng.randint(1, P * ps - 1, size=B)
+                case = paged_pool_case(rng, dev, dt, B, KV, G, hd, ps, P, 2,
+                                       seq, rng.rand(B) < 0.7)
+                for self_mode in (False, True):
+                    args, kw = paged_args(case, window, self_mode)
+                    errs.check("paged", f"sweep B={B} KV={KV} G={G} hd={hd} "
+                               f"w={window} self={self_mode} {dt}",
+                               op(*args, **kw),
+                               paged_attention_plain(*args, **kw), dt)
+                    n_cases += 1
+        # serving shapes: deepseek-7b, then gemma3-1b's local and global
+        # layers; lane 1 at a page boundary, lane 2 inactive, lane 3 short
+        for (KV, G, hd, ps, P, L, seq), windows in (
+                ((32, 1, 128, 8, 33, 30, [119, 64, 40, 3]), (FULL,)),
+                ((1, 4, 256, 16, 129, 26, [1400, 1024, 700, 611]),
+                 (512, FULL))):
+            case = paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P, L, seq,
+                                   [True, True, False, True])
+            for window in windows:
+                for self_mode in (False, True):
+                    args, kw = paged_args(case, window, self_mode)
+                    errs.check("paged", f"serving KV={KV} G={G} hd={hd} "
+                               f"w={window} self={self_mode} {dt}",
+                               op(*args, **kw),
+                               paged_attention_plain(*args, **kw), dt)
+                    n_cases += 1
+        # tests/test_prefix_alias.py's case: position seq_len of lane 0 in
+        # a NO_BLOCK slot (read as page 0); an aliased page must read
+        # bit-identically to a private copy of it
+        q = rand(rng, (2, 4, 32), dt, dev)
+        kp, vp = rand(rng, (12, 8, 2, 32), dt, dev), rand(rng, (12, 8, 2, 32),
+                                                          dt, dev)
+        seq = torch.tensor([24, 22], dtype=torch.int32, device=dev)
+        shared = torch.tensor([[0, 1, 2, -1], [0, 1, 3, -1]],
+                              dtype=torch.int32, device=dev)
+        private = torch.tensor([[0, 1, 2, -1], [10, 11, 3, -1]],
+                               dtype=torch.int32, device=dev)
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[10:12], vp2[10:12] = kp[0:2], vp[0:2]
+        got = op(q, kp, vp, shared, seq)
+        if not torch.equal(got, op(q, kp2, vp2, private, seq)):
+            fail(f"paged kernel: shared and private tables differ ({dt})")
+        errs.check("paged", f"NO_BLOCK slot {dt}", got,
+                   paged_attention_plain(q, kp, vp, shared, seq, FULL), dt)
+        n_cases += 2
+    torch.cuda.synchronize()
+    print(f"  paged attention: {n_cases} cases within tolerance, shared == "
+          f"private bit for bit, max_abs_err={errs.max['paged']:.3e}")
+
+
+def flash_parity(dev, errs: Errors) -> None:
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(1)
+    cases = [(2, *s) for s in FLASH_SWEEP] + [
+        (2, 37, 37, 4, 1, 256, True, 16),          # ragged Tq, gemma heads
+        (1, 100, 100, 2, 1, 16, True, FULL),       # ragged Tq
+        (4, 128, 128, 32, 32, 128, True, FULL),    # deepseek-7b prefill
+        (4, 1536, 1536, 4, 1, 256, True, 512),     # gemma3-1b local layer
+        (4, 1536, 1536, 4, 1, 256, True, FULL)]    # gemma3-1b global layer
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Tq, Tk, H, KV, hd, causal, window in cases:
+            q = rand(rng, (B, Tq, H, hd), dt, dev)
+            k = rand(rng, (B, Tk, KV, hd), dt, dev)
+            v = rand(rng, (B, Tk, KV, hd), dt, dev)
+            errs.check("flash", f"B={B} Tq={Tq} H={H} KV={KV} hd={hd} "
+                       f"causal={causal} w={window} {dt}",
+                       flash_attention_op(q, k, v, causal=causal,
+                                          window=window),
+                       flash_attention_ref(q, k, v, causal=causal,
+                                           window=window), dt)
+    torch.cuda.synchronize()
+    print(f"  flash attention: {2 * len(cases)} cases within tolerance, "
+          f"max_abs_err={errs.max['flash']:.3e}")
+
+
+def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
+    """The decode call at a serving shape: bf16, self mode on one layer of
+    an L-layer pool, every lane active."""
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as op
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    case = paged_pool_case(np.random.RandomState(2), dev, torch.bfloat16, B,
+                           KV, G, hd, ps, P, L, seq, [True] * B)
+    args, kw = paged_args(case, window, True)
+    ms = device_ms(lambda: op(*args, **kw))
+    plain_ms = device_ms(lambda: paged_attention_plain(*args, **kw))
+    live = sum(min(s, window - 1) + 1 for s in seq)   # cached + self
+    el = 2
+    nbytes = (live * KV * hd * 2 + 2 * B * KV * G * hd) * el \
+        + B * 4 * (1 + -(-max(seq) // ps))
+    ops = 4 * hd * KV * G * live
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / TENSOR_BF16_OPS_PER_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / TENSOR_BF16_OPS_PER_S \
+        else "operations"
+    shape = dict(B=B, H=KV * G, KV=KV, hd=hd, ps=ps, P=P, seq_lens=list(seq),
+                 window=window, live_tokens=live)
+    print(f"  time paged {shape}: kernel {ms * 1e3:.2f} us/launch, plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, shape=shape)
+
+
+def time_flash(dev, B, T, H, KV, hd, window) -> dict:
+    """Causal bf16 prefill attention at a serving shape; the library
+    yardstick is ``scaled_dot_product_attention`` (no window: it has
+    none), timed here and called nowhere in the port."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(3)
+    q = rand(rng, (B, T, H, hd), torch.bfloat16, dev)
+    k = rand(rng, (B, T, KV, hd), torch.bfloat16, dev)
+    v = rand(rng, (B, T, KV, hd), torch.bfloat16, dev)
+    ms = device_ms(lambda: flash_attention_op(q, k, v, causal=True,
+                                              window=window), n=30)
+    plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                     window=window), n=10)
+    library_ms = None
+    if window >= T:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), n=30)
+    pairs = sum(min(i + 1, window) for i in range(T))
+    ops = 4 * hd * pairs * B * H
+    nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * KV * hd)
+    t_ops, t_bytes = ops / TENSOR_BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    shape = dict(B=B, T=T, H=H, KV=KV, hd=hd, window=window, pairs=pairs)
+    lib = "n/a" if library_ms is None else f"{library_ms * 1e3:.1f} us"
+    print(f"  time flash {shape}: kernel {ms * 1e3:.1f} us/launch, plain "
+          f"{plain_ms * 1e3:.1f} us, SDPA {lib}, bound {bound * 1e3:.2f} us "
+          f"({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, shape=shape)
+
+
+# --------------------------------------------------------------------------
 # phases 4 and 5: serving
 # --------------------------------------------------------------------------
 
-def serve(cfg, params, dtype, dev, verbose=False):
-    from repro_torch.launch.serve import serve_loop, synth_requests
+def make_requests(cfg, wl, prompt_lens):
+    """``wl["requests"]`` requests from ``RandomState(0)``: the launcher's
+    synthetic mix, or uniform prompt lengths in ``prompt_lens``."""
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.RandomState(0)
+    if prompt_lens is None:
+        return synth_requests(cfg, wl["requests"], rng)
+    lens = rng.randint(prompt_lens[0], prompt_lens[1] + 1, wl["requests"])
+    return [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, size=int(n))
+                    .astype(np.int32)) for i, n in enumerate(lens)]
+
+
+def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False):
+    from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
-    kvcfg = make_paged_config(cfg, seq_len=SERVE_SEQ, lanes=SERVE_LANES,
-                              page_size=SERVE_PAGE, dtype=dtype)
-    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=128)
+    kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
+                              page_size=wl["page"], dtype=dtype)
+    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
     sched = Scheduler(scfg)
-    reqs = synth_requests(cfg, SERVE_REQUESTS, np.random.RandomState(0))
+    reqs = make_requests(cfg, wl, prompt_lens)
     step_us: list = []
-    steps = serve_loop(eng, sched, reqs, SERVE_NEW_TOKENS, verbose=verbose,
+    steps = serve_loop(eng, sched, reqs, wl["new_tokens"], verbose=verbose,
                        step_times_us=step_us)
     return eng, sched, reqs, steps, step_us
 
@@ -271,79 +511,128 @@ def check_served(eng, sched, reqs) -> None:
         fail(f"{eng.live_pages} KV pages still live after the last release")
 
 
-def serve_full_width(dev) -> dict:
+def serve_full_width(dev, arch: str) -> dict:
+    """One configuration at its published widths; returns each kernel's
+    launches in that run, set to 0 just before it."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
     from repro_torch.kernels.support_core.ops import KERNEL
     from repro_torch.models import init_params
-    cfg = get_config(SERVE_ARCH)
+    cfg, wl = get_config(arch), WORKLOADS[arch]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    print(f"  {SERVE_ARCH}: {cfg.num_layers} layers (all), d_model "
-          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16; weights drawn in "
-          f"{time.perf_counter() - t0:.1f}s")
+    print(f"  {arch}: {cfg.num_layers} layers (all), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.attn_pattern} attention (window {cfg.window}), {cfg.act}, "
+          f"bf16; weights drawn in {time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    KERNEL.launches = PAGED_KERNEL.launches = FLASH_KERNEL.launches = 0
     t0 = time.perf_counter()
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
-                                             dev, verbose=True)
+                                             dev, wl, wl["prompt_lens"],
+                                             verbose=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches = dict(support_core_burst=KERNEL.launches,
+                    paged_decode_attention=PAGED_KERNEL.launches,
+                    flash_attention=FLASH_KERNEL.launches)
     check_served(eng, sched, reqs)
-    if launches <= 0 or launches != eng.stats.commits:
-        fail(f"support-core kernel launches {launches} != engine commits "
-             f"{eng.stats.commits}")
+    s, L = eng.stats, cfg.num_layers
+    want = dict(support_core_burst=s.commits,
+                paged_decode_attention=s.decode_steps * L,
+                flash_attention=s.prefill_passes * L)
+    for name, n in launches.items():
+        if n <= 0 or n != want[name]:
+            fail(f"{arch}: {name} launches {n} != {want[name]} expected "
+                 f"from the engine's counters")
     decode_tokens = sum(len(r.output) for r in reqs) - len(reqs)
-    s = eng.stats
-    print(f"  served {len(sched.finished)}/{len(reqs)} requests in {steps} "
-          f"decode steps, {wall:.2f}s wall; kernel launches {launches} == "
-          f"commits ({s.hmq_admit_bursts} admit + {s.decode_steps} decode + "
-          f"{s.hmq_release_bursts} release), {s.decode_bursts} decode bursts "
-          f"live")
-    print(f"  decode {decode_tokens / (sum(step_us) / 1e6):.1f} tokens/s, "
-          f"median decode step {statistics.median(step_us) / 1e3:.2f} ms, "
-          f"peak GPU memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB")
+    prompts = [r.prompt_len for r in reqs]
+    print(f"  served {len(sched.finished)}/{len(reqs)} requests (prompts "
+          f"{min(prompts)}-{max(prompts)} tokens) in {steps} decode steps, "
+          f"{wall:.2f}s wall; launches: support core {launches['support_core_burst']}"
+          f" == commits ({s.hmq_admit_bursts} admit + {s.decode_steps} decode "
+          f"+ {s.hmq_release_bursts} release), paged "
+          f"{launches['paged_decode_attention']} == {s.decode_steps} decode "
+          f"steps x {L}, flash {launches['flash_attention']} == "
+          f"{s.prefill_passes} prefill passes x {L}; {s.decode_bursts} decode "
+          f"bursts live")
+    tps = decode_tokens / (sum(step_us) / 1e6)
+    med = statistics.median(step_us) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  decode {tps:.1f} tokens/s, median decode step {med:.2f} ms, "
+          f"peak GPU memory {peak:.2f} GiB")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
-    return dict(launches=launches)
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
+                peak_gib=peak)
 
 
-def device_vs_cpu(dev) -> None:
+def top2_margin(cfg, params_cpu, tokens) -> float:
+    from repro_torch.models.transformer import forward
+    logits = forward(params_cpu, torch.as_tensor(tokens)[None])[0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def device_vs_cpu(dev, arch: str) -> None:
     from repro_torch.configs import smoke_config
     from repro_torch.models import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_config(SERVE_ARCH)
+    cfg = smoke_config(arch)
+    if cfg.attn_pattern == "local_global":
+        cfg = dataclasses.replace(cfg, local_per_global=1)
     params_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to(dev)
     runs = {}
     for name, p, d in (("cuda", params_gpu, dev), ("cpu", params_cpu, "cpu")):
-        eng, sched, reqs, steps, _ = serve(cfg, p, torch.float32, d)
+        eng, sched, reqs, steps, _ = serve(cfg, p, torch.float32, d, SMALL,
+                                           SMALL_PROMPTS[arch])
         check_served(eng, sched, reqs)
         runs[name] = (eng, reqs, steps)
     (eg, rg, sg), (ec, rc, sc) = runs["cuda"], runs["cpu"]
-    if sg != sc or [r.output for r in rg] != [r.output for r in rc]:
-        fail("served tokens differ between cuda and cpu")
+    for a, b in zip(rg, rc):
+        if a.output != b.output:
+            i = next((i for i, (x, y) in enumerate(zip(a.output, b.output))
+                      if x != y), min(len(a.output), len(b.output)))
+            ctx = np.concatenate([b.tokens, np.asarray(b.output[:i],
+                                                       np.int32)])
+            fail(f"{arch}: request {a.rid} token {i} differs between cuda "
+                 f"({a.output[i:i + 1]}) and cpu ({b.output[i:i + 1]}); top-2 "
+                 f"logit margin on the cpu there: "
+                 f"{top2_margin(cfg, params_cpu, ctx):.3e}")
+    if sg != sc:
+        fail(f"{arch}: {sg} decode steps on cuda, {sc} on cpu")
     ag, ac = eg.state.paged.alloc, ec.state.paged.alloc
     for field in ag._fields:
         if not torch.equal(getattr(ag, field).cpu(), getattr(ac, field)):
-            fail(f"allocator state field {field} differs between cuda and "
-                 f"cpu")
+            fail(f"{arch}: allocator state field {field} differs between "
+                 f"cuda and cpu")
     for field in ("block_tables", "seq_lens", "active", "scratch_slot"):
         if not torch.equal(getattr(eg.state.paged, field).cpu(),
                            getattr(ec.state.paged, field)):
-            fail(f"paged state field {field} differs between cuda and cpu")
-    print(f"  cuda and cpu agree: {sum(len(r.output) for r in rg)} tokens "
-          f"over {sg} decode steps, allocator state bit-identical")
+            fail(f"{arch}: paged state field {field} differs between cuda "
+                 f"and cpu")
+    prompts = [r.prompt_len for r in rg]
+    print(f"  {arch} ({cfg.num_layers} layers, windows "
+          f"{[cfg.window] if cfg.window else 'none'}): cuda and cpu agree on "
+          f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
+          f"(prompts {min(prompts)}-{max(prompts)}), allocator state "
+          f"bit-identical")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
-    from repro_torch.kernels.support_core.ops import KERNEL, build
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
+    from repro_torch.kernels.support_core.ops import KERNEL
 
     print("== 1. card")
     smi = subprocess.run(
@@ -356,33 +645,76 @@ def main() -> None:
     dev = torch.device("cuda")
 
     print("== 2. build")
-    so = build()
-    print(f"  built {so.name} in {KERNEL.build_seconds:.2f}s")
+    kernels = (KERNEL, PAGED_KERNEL, FLASH_KERNEL)
+    build_all(kernels)
+    for k in kernels:
+        print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
 
-    print("== 3. kernel against plain version")
+    print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
     t_serve = time_burst(dev, Q=2 * SERVE_LANES, C=2, N=512, R=7,
                          caps=[512, SERVE_LANES])
     t_large = time_burst(dev, Q=256, C=8, N=65536, R=8,
                          caps=[65536] * 8)
+    errs = Errors()
+    paged_parity(dev, errs)
+    flash_parity(dev, errs)
+    t_paged = {
+        "deepseek-7b": time_paged(dev, 4, 32, 1, 128, 8, 33, 30,
+                                  [119, 104, 87, 112], FULL),
+        "gemma3-1b local": time_paged(dev, 4, 1, 4, 256, 16, 129, 26,
+                                      [1400, 1024, 700, 611], 512),
+        "gemma3-1b global": time_paged(dev, 4, 1, 4, 256, 16, 129, 26,
+                                       [1400, 1024, 700, 611], FULL)}
+    t_flash = {
+        "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
+        "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
+        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL)}
 
-    print("== 4. serve at full width")
-    served = serve_full_width(dev)
+    print("== 4. serve deepseek-7b at full width")
+    served = {"deepseek-7b": serve_full_width(dev, "deepseek-7b")}
+    print("== 4b. serve gemma3-1b at full width")
+    served["gemma3-1b"] = serve_full_width(dev, "gemma3-1b")
 
     print("== 5. device against cpu")
-    device_vs_cpu(dev)
+    for arch in ("deepseek-7b", "gemma3-1b"):
+        device_vs_cpu(dev, arch)
 
     print("== 6. result")
-    kernels = [dict(
-        name="support_core_burst", route="cuda",
-        source="src/repro_torch/kernels/support_core/csrc/support_core.cu",
-        replaces="src/repro/kernels/support_core/support_core_kernel.py:205",
-        launches=served["launches"], max_abs_err=par.max_abs_err,
-        ms=t_serve["ms"], plain_ms=t_serve["plain_ms"],
-        bound_ms=t_serve["bound_ms"], bound_by=t_serve["bound_by"],
-        library_ms=None,
-        large_shape=dict(Q=256, C=8, N=65536, R=8, **t_large))]
-    print(json.dumps({"kernels": kernels}))
+
+    def launches(name):
+        by_run = {a: s["launches"][name] for a, s in served.items()}
+        return dict(launches=sum(by_run.values()), launches_by_run=by_run)
+
+    def timed(t, main_key):
+        out = dict(t[main_key])
+        out["other_shapes"] = {k: v for k, v in t.items() if k != main_key}
+        return out
+
+    kernels_line = [
+        dict(name="support_core_burst", route="cuda",
+             source="src/repro_torch/kernels/support_core/csrc/support_core.cu",
+             replaces="src/repro/kernels/support_core/support_core_kernel.py:205",
+             **launches("support_core_burst"), max_abs_err=par.max_abs_err,
+             ms=t_serve["ms"], plain_ms=t_serve["plain_ms"],
+             bound_ms=t_serve["bound_ms"], bound_by=t_serve["bound_by"],
+             library_ms=None,
+             large_shape=dict(Q=256, C=8, N=65536, R=8, **t_large)),
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/kernels/paged_attention/csrc/"
+                    "paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention/paged_attention.py:92",
+             **launches("paged_decode_attention"),
+             max_abs_err=errs.max["paged"],
+             **timed(t_paged, "deepseek-7b")),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:83",
+             **launches("flash_attention"), max_abs_err=errs.max["flash"],
+             **timed(t_flash, "deepseek-7b")),
+    ]
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

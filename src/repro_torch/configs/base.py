@@ -2,9 +2,9 @@
 
 One :class:`ArchConfig` describes an architecture; ``configs/<id>.py``
 instantiates the published numbers and :func:`get_config` resolves an arch
-id.  This slice of the port carries the dense family only, so the registry
-knows ``deepseek-7b``; the other arch modules are ported with their model
-families (ROADMAP.md, Queue 1).
+id.  The port carries the dense family so far -- ``deepseek-7b`` (full
+attention) and ``gemma3-1b`` (local:global windows, GQA); the other arch
+modules are ported with their model families (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -15,10 +15,11 @@ from typing import Optional
 _REGISTRY: dict[str, "ArchConfig"] = {}
 
 #: arch ids the port can build today
-ARCH_IDS = ("deepseek-7b",)
+ARCH_IDS = ("deepseek-7b", "gemma3-1b")
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
+    "gemma3-1b": "gemma3_1b",
 }
 
 

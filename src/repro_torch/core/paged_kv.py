@@ -405,29 +405,8 @@ def release_lanes(
 
 
 # --------------------------------------------------------------------------
-# Gather (decode's read of the allocator-managed pages) and checks.
+# Checks.
 # --------------------------------------------------------------------------
-
-def gather_kv(
-    cfg: PagedKVConfig,
-    state: PagedKVState,
-    layer: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(k, v, valid)`` for one layer: k, v ``[max_lanes, P * page_size,
-    kv_heads, head_dim]``, valid ``[max_lanes, P * page_size]`` bool."""
-    tbl = state.block_tables
-    safe = torch.where(tbl == NO_BLOCK, 0, tbl).long()
-    lanes, P = tbl.shape
-    ps = cfg.page_size
-    k = state.k_pages[safe, layer].reshape(lanes, P * ps, cfg.kv_heads,
-                                           cfg.head_dim)
-    v = state.v_pages[safe, layer].reshape(lanes, P * ps, cfg.kv_heads,
-                                           cfg.head_dim)
-    tok = torch.arange(P * ps, dtype=I32, device=tbl.device)[None, :]
-    valid = (tok < state.seq_lens[:, None]) \
-        & (tbl != NO_BLOCK).repeat_interleave(ps, dim=1)
-    return k, v, valid & state.active[:, None]
-
 
 def live_pages(state: PagedKVState, tenants: PagedTenants) -> torch.Tensor:
     """Currently allocated KV pages of the engine's KV class."""

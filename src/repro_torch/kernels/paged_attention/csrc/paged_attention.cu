@@ -1,0 +1,326 @@
+// Paged decode attention for Hopper (sm_90a): one new token per lane
+// attends over that lane's KV pages, found through its block table.
+//
+// Replaces the TPU kernel
+// src/repro/kernels/paged_attention/paged_attention.py (paged_attention_kernel
+// / _kernel) and computes the function of its oracle ref.py
+// (paged_attention_ref): positions seq_len - window < pos <= seq_len are
+// valid, a NO_BLOCK (< 0) table slot is read as page 0, G = H / KV query
+// heads share each KV head, softmax in f32, output in q's dtype.
+//
+// Self mode (k_self != nullptr) is the serving decode's convention: the
+// token's own K/V is not in the cache yet, so cached positions are
+// pos < seq_len, the position seq_len is read from k_self / v_self
+// [B, KV, hd], and a lane with active[b] == 0 gives zeros.
+//
+// Design.  One thread block per (lane, KV head, group of up to 8 query
+// heads).  The Pallas grid walks every page slot because its grid is
+// static; here the block loops over the lane's live positions only.  A
+// token is read by TPT threads with 16-byte loads along hd; the block's
+// 8 warps work on 8 * 32 / TPT tokens at a time, UNROLL deep, each thread
+// group keeping its own running max m, denominator l and accumulator in
+// f32 (registers).  The groups merge in a fixed order (shuffles inside a
+// warp, then shared memory across warps), so the kernel is deterministic:
+// no atomics, and a page aliased by two block tables reads bit-identically
+// to a private copy.  Positions outside the valid range are never loaded,
+// so a NaN in an unused page cannot reach the output.
+//
+// Bound: bytes.  Each live token's K and V row is read once
+// (2 * hd * element size per KV head) and there are G query rows per row
+// read, far below the card's ~295 operations per byte; at the serving
+// shapes the bytes take a few microseconds at 3.35 TB/s.  With one block
+// per (lane, KV head) a lane's context streams through one SM, so few
+// lanes times few KV heads leave most SMs idle: splitting the context
+// across blocks (flash-decoding) is the next step for this kernel.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int MAXG = 8;       // query heads per block; grid.z covers G > 8
+constexpr int UNROLL = 4;     // tokens each thread group has in flight
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ void load16(const float* p, float* dst) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);   // round to nearest even, as torch's .to()
+}
+
+template <typename T, int HD>
+struct Tiling {
+  static constexpr int VEC = 16 / sizeof(T);               // elements per load
+  static constexpr int TPT = HD / VEC < 32 ? HD / VEC : 32;  // threads per token
+  static constexpr int ELEMS = HD / TPT;                    // per thread
+  static constexpr int GPW = 32 / TPT;                      // groups per warp
+  static constexpr int GROUPS = WARPS * GPW;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) paged_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ seq_lens, const T* __restrict__ k_self,
+    const T* __restrict__ v_self, const unsigned char* __restrict__ active,
+    T* __restrict__ out, int H, int KV, int G, int ps, int P,
+    long long page_stride, long long tok_stride, long long head_stride,
+    int window, float scale) {
+  using C = Tiling<T, HD>;
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, kvh = blockIdx.y, g0 = blockIdx.z * MAXG;
+  const int ng = min(MAXG, G - g0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int d0 = (lane % C::TPT) * C::ELEMS;
+  const long long row0 = (static_cast<long long>(b) * H +
+                          static_cast<long long>(kvh) * G + g0) * HD;
+  const bool self_mode = k_self != nullptr;
+
+  if (active != nullptr && !active[b]) {
+    for (int i = tid; i < ng * HD; i += THREADS) store(out + row0 + i, 0.f);
+    return;
+  }
+
+  float* q_s = smem;                       // [ng][HD], pre-scaled
+  float* w_ml = q_s + ng * HD;             // [WARPS][2][ng]
+  float* w_acc = w_ml + WARPS * 2 * ng;    // [WARPS][ng][HD]
+  for (int i = tid; i < ng * HD; i += THREADS)
+    q_s[i] = to_float(q[row0 + i]) * scale;
+  __syncthreads();
+
+  // live positions: [lo, hi] from the pages, then (self mode) seq_len
+  const int seq = seq_lens[b];
+  const long long lo_w = static_cast<long long>(seq) - window + 1;
+  const int lo = lo_w > 0 ? static_cast<int>(lo_w) : 0;
+  const int hi = min(self_mode ? seq - 1 : seq, P * ps - 1);
+  const int n_cache = max(0, hi - lo + 1);
+  const int n_total = n_cache + (self_mode && window > 0 ? 1 : 0);
+
+  float m[MAXG], l[MAXG], acc[MAXG][C::ELEMS];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < C::ELEMS; ++e) acc[g][e] = 0.f;
+  }
+
+  const int grp = warp * C::GPW + lane / C::TPT;
+  for (int base = 0; base < n_total; base += C::GROUPS * UNROLL) {
+    float kf[UNROLL][C::ELEMS], vf[UNROLL][C::ELEMS];
+    bool ok[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int t = base + u * C::GROUPS + grp;
+      ok[u] = t < n_total;
+      if (!ok[u]) {
+#pragma unroll
+        for (int e = 0; e < C::ELEMS; ++e) kf[u][e] = vf[u][e] = 0.f;
+        continue;
+      }
+      const T* kp;
+      const T* vp;
+      if (t < n_cache) {
+        const int pos = lo + t;
+        int page = tables[static_cast<long long>(b) * P + pos / ps];
+        page = page < 0 ? 0 : page;
+        const long long off = static_cast<long long>(page) * page_stride +
+                              static_cast<long long>(pos % ps) * tok_stride +
+                              static_cast<long long>(kvh) * head_stride + d0;
+        kp = k_pages + off;
+        vp = v_pages + off;
+      } else {
+        const long long off =
+            (static_cast<long long>(b) * KV + kvh) * HD + d0;
+        kp = k_self + off;
+        vp = v_self + off;
+      }
+#pragma unroll
+      for (int e = 0; e < C::ELEMS; e += C::VEC) {
+        load16(kp + e, &kf[u][e]);
+        load16(vp + e, &vf[u][e]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g >= ng) break;
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < C::ELEMS; ++e)
+          s = fmaf(q_s[g * HD + d0 + e], kf[u][e], s);
+#pragma unroll
+        for (int o = C::TPT / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (!ok[u]) continue;
+        const float m_new = fmaxf(m[g], s);
+        const float alpha = expf(m[g] - m_new);
+        const float p = expf(s - m_new);
+        l[g] = l[g] * alpha + p;
+#pragma unroll
+        for (int e = 0; e < C::ELEMS; ++e)
+          acc[g][e] = fmaf(p, vf[u][e], acc[g][e] * alpha);
+        m[g] = m_new;
+      }
+    }
+  }
+
+  // merge the thread groups of a warp (lanes TPT apart hold the same slice)
+#pragma unroll
+  for (int o = C::TPT; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= ng) break;
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float m_new = fmaxf(m[g], m_o);
+      const float a = expf(m[g] - m_new), c = expf(m_o - m_new);
+      l[g] = l[g] * a + l_o * c;
+#pragma unroll
+      for (int e = 0; e < C::ELEMS; ++e) {
+        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = acc[g][e] * a + acc_o * c;
+      }
+      m[g] = m_new;
+    }
+  }
+  if (lane < C::TPT) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= ng) break;
+#pragma unroll
+      for (int e = 0; e < C::ELEMS; ++e)
+        w_acc[(warp * ng + g) * HD + d0 + e] = acc[g][e];
+      if (lane == 0) {
+        w_ml[(warp * 2) * ng + g] = m[g];
+        w_ml[(warp * 2 + 1) * ng + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  // merge the warps, in warp order
+  for (int i = tid; i < ng * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    float mx = NEG_INF;
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, w_ml[(w * 2) * ng + g]);
+    float den = 0.f, num = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(w_ml[(w * 2) * ng + g] - mx);
+      den += w_ml[(w * 2 + 1) * ng + g] * f;
+      num += w_acc[(w * ng + g) * HD + d] * f;
+    }
+    store(out + row0 + i, num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const int* tables, const int* seq_lens, const void* k_self,
+           const void* v_self, const unsigned char* active, void* out, int B,
+           int H, int KV, int ps, int P, long long page_stride,
+           long long tok_stride, long long head_stride, int window,
+           cudaStream_t stream) {
+  const int G = H / KV;
+  const int ng = G < MAXG ? G : MAXG;
+  const size_t bytes =
+      sizeof(float) * (ng * HD + WARPS * 2 * ng + WARPS * ng * HD);
+  auto kernel = paged_attention_kernel<T, HD>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B, KV, (G + MAXG - 1) / MAXG);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), tables, seq_lens,
+      static_cast<const T*>(k_self), static_cast<const T*>(v_self), active,
+      static_cast<T*>(out), H, KV, G, ps, P, page_stride, tok_stride,
+      head_stride, window,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_hd(int hd, const void* q, const void* kp, const void* vp,
+              const int* tables, const int* seq_lens, const void* ks,
+              const void* vs, const unsigned char* active, void* out, int B,
+              int H, int KV, int ps, int P, long long page_stride,
+              long long tok_stride, long long head_stride, int window,
+              cudaStream_t stream) {
+#define PAGED_HD(N)                                                         \
+  case N:                                                                   \
+    return launch<T, N>(q, kp, vp, tables, seq_lens, ks, vs, active, out, B, \
+                        H, KV, ps, P, page_stride, tok_stride, head_stride,  \
+                        window, stream);
+  switch (hd) {
+    PAGED_HD(16)
+    PAGED_HD(32)
+    PAGED_HD(64)
+    PAGED_HD(128)
+    PAGED_HD(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PAGED_HD
+}
+
+}  // namespace
+
+extern "C" {
+
+// One decode-attention launch on `stream`; returns cudaGetLastError()
+// (0 = launched).  dtype: 0 = float32, 1 = bfloat16.  k_self / v_self /
+// active may be null (the JAX op's contract: every lane active, the
+// token already in the cache).  Strides are in elements; the last dim is
+// contiguous.
+int paged_attention_launch(const void* q, const void* k_pages,
+                           const void* v_pages, const int* tables,
+                           const int* seq_lens, const void* k_self,
+                           const void* v_self, const unsigned char* active,
+                           void* out, int B, int H, int KV, int hd, int ps,
+                           int P, long long page_stride, long long tok_stride,
+                           long long head_stride, int window, int dtype,
+                           void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || ps <= 0 || P <= 0 ||
+      (k_self == nullptr) != (v_self == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_hd<float>(hd, q, k_pages, v_pages, tables, seq_lens, k_self,
+                            v_self, active, out, B, H, KV, ps, P, page_stride,
+                            tok_stride, head_stride, window, s);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, tables, seq_lens,
+                                    k_self, v_self, active, out, B, H, KV, ps,
+                                    P, page_stride, tok_stride, head_stride,
+                                    window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of paged decode attention.
+
+* :func:`paged_attention_ref` -- port of the JAX oracle
+  ``repro.kernels.paged_attention.ref.paged_attention_ref``: the current
+  token is already in the cache, positions ``seq_len - window < pos <=
+  seq_len`` are valid.
+* :func:`paged_decode_attention` -- the serving decode's attention (port
+  of ``repro.models.decode.paged_decode_attention``): cached slots
+  ``pos < seq_len`` of the gathered pages plus the token's own K/V as an
+  appended self column, inactive lanes give zeros.  It runs the chunked
+  scan of :func:`repro_torch.models.attention.mea_attention`, as the JAX
+  decode does.
+* :func:`paged_attention_plain` -- the kernel's plain version with the
+  op's arguments, choosing between the two by the self mode.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ...core.packets import NO_BLOCK
+from ...models.attention import NEG_INF, mea_attention
+
+
+def paged_attention_ref(
+    q: torch.Tensor,             # [B, KV, G, hd]
+    k_pages: torch.Tensor,       # [num_pages, ps, KV, hd]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32 (invalid slots clamped to 0)
+    seq_lens: torch.Tensor,      # [B] int32 (self token already in cache)
+    window: int,
+) -> torch.Tensor:
+    """Returns ``[B, KV, G, hd]`` in q's dtype."""
+    B, KV, G, hd = q.shape
+    ps = k_pages.shape[1]
+    P = block_tables.shape[1]
+    idx = block_tables.long()
+    k = k_pages[idx].permute(0, 3, 1, 2, 4).reshape(B, KV, P * ps, hd)
+    v = v_pages[idx].permute(0, 3, 1, 2, 4).reshape(B, KV, P * ps, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float() * scale, k.float())
+    pos = torch.arange(P * ps, dtype=torch.int32, device=q.device)[None, :]
+    valid = (pos <= seq_lens[:, None]) & (pos > seq_lens[:, None] - window)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.to(q.dtype)
+
+
+def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """``[B, P * ps, KV, hd]``: each lane's pages in table order, a
+    ``NO_BLOCK`` slot read as page 0 (``pages`` is ``[num_pages, ps, KV,
+    hd]``, e.g. one layer's view of a pool)."""
+    B, P = block_tables.shape
+    safe = torch.where(block_tables == NO_BLOCK, 0, block_tables).long()
+    return pages[safe].reshape(B, P * pages.shape[1], *pages.shape[2:])
+
+
+def paged_decode_attention(
+    q: torch.Tensor,          # [B, H, hd] new token queries
+    k_gath: torch.Tensor,     # [B, S, KV, hd] gathered pages
+    v_gath: torch.Tensor,
+    k_new: torch.Tensor,      # [B, KV, hd] this token's K (not yet in cache)
+    v_new: torch.Tensor,
+    seq_lens: torch.Tensor,   # [B] tokens already in cache
+    active: torch.Tensor,     # [B] bool
+    window: int,
+) -> torch.Tensor:
+    """Attention of each lane's new token over its cached slots
+    ``pos < seq_len`` plus an appended self column at ``pos == seq_len``."""
+    B, S = k_gath.shape[:2]
+    dev = q.device
+    k = torch.cat([k_gath, k_new[:, None]], dim=1)
+    v = torch.cat([v_gath, v_new[:, None]], dim=1)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    pos = torch.cat([pos, seq_lens[:, None]], dim=1)              # [B, S+1]
+    is_self = torch.arange(S + 1, device=dev) == S
+    valid = torch.where(is_self[None, :], True, pos < seq_lens[:, None])
+    valid = valid & (pos > seq_lens[:, None] - window)
+    valid = valid & active[:, None]
+    out = mea_attention(q[:, None], k, v, causal=False, window=None,
+                        kv_valid=valid, chunk=2048)
+    return out[:, 0]
+
+
+def paged_attention_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, seq_lens: torch.Tensor, window: int,
+    k_self: Optional[torch.Tensor] = None,
+    v_self: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """What the kernel computes, on any device: ``[B, H, hd]``; the self
+    mode when ``k_self``/``v_self``/``active`` are given."""
+    if k_self is not None:
+        return paged_decode_attention(
+            q, gather_pages(k_pages, block_tables),
+            gather_pages(v_pages, block_tables), k_self, v_self, seq_lens,
+            active, window)
+    B, H, hd = q.shape
+    KV = k_pages.shape[2]
+    tables = torch.where(block_tables == NO_BLOCK, 0, block_tables)
+    out = paged_attention_ref(q.reshape(B, KV, H // KV, hd), k_pages,
+                              v_pages, tables, seq_lens, window)
+    return out.reshape(B, H, hd)

@@ -11,87 +11,35 @@ order.  The device of the state decides the path:
   (:func:`repro_torch.core.support_core._step_scheduled_torch`).
 
 :data:`KERNEL` counts launches, so a run can show that its bursts went
-through the kernel.  The build goes to ``build/kernels/`` at the repository
-root, under a name keyed by the source's content hash.
+through the kernel.  The build is :class:`repro_torch.kernels._build.Kernel`'s.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
 from ...core.freelist import FreeListState
 from ...core.packets import RequestQueue
 from ...core.support_core import _step_scheduled_torch
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "support_core.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from .._build import Kernel
 
 _STATE_FIELDS = ("free_stack", "free_top", "owner", "refcount", "alloc_count",
                  "free_count", "fail_count", "used", "peak_used")
 
 
-class _Kernel:
-    """Build-once handle of the shared library and its launch count."""
-
-    def __init__(self):
-        self.lib: Optional[ctypes.CDLL] = None
-        self.launches = 0          # plain integer, +1 per kernel launch
-        self.build_seconds: Optional[float] = None
-
-
-KERNEL = _Kernel()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the support-core kernel is built "
-                       "from csrc/support_core.cu at first use")
-
-
-def build() -> Path:
-    """Compile the kernel (once per source content) and load it.
-
-    Returns the shared library's path; ``KERNEL.build_seconds`` holds the
-    time this call spent (0 when the library was already built).
-    """
-    if KERNEL.lib is not None:
-        return Path(KERNEL.lib._name)
-    t0 = time.perf_counter()
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libsupport_core-{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     lib.support_core_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.support_core_in_smem.restype = ctypes.c_int
     lib.support_core_burst_launch.argtypes = (
         [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.support_core_burst_launch.restype = ctypes.c_int
-    KERNEL.lib = lib
-    KERNEL.build_seconds = time.perf_counter() - t0
-    return so
+
+
+KERNEL = Kernel("support_core",
+                Path(__file__).resolve().parent / "csrc" / "support_core.cu",
+                _bind)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -132,7 +80,7 @@ def support_core_burst(
         _check(name, getattr(state, name), shape, dev)
     for name in RequestQueue._fields:
         _check(f"sched.{name}", getattr(sched, name), (Q,), dev)
-    build()
+    KERNEL.build()
     lib = KERNEL.lib
     out = {name: torch.empty_like(getattr(state, name)) for name in _STATE_FIELDS}
     blocks = torch.empty((Q, R), dtype=torch.int32, device=dev)
@@ -148,9 +96,7 @@ def support_core_burst(
     ptrs.append(scratch.data_ptr() if scratch is not None else None)
     err = lib.support_core_burst_launch(*ptrs, Q, C, N, R, int(gated),
                                         in_smem, stream)
-    if err != 0:
-        raise RuntimeError(f"support-core kernel launch failed: CUDA error "
-                           f"{err} (Q={Q} C={C} N={N} R={R})")
+    KERNEL.check(err, f"Q={Q} C={C} N={N} R={R}")
     KERNEL.launches += 1
     new_state = state._replace(**out)
     return new_state, blocks, ok

@@ -1,4 +1,14 @@
-"""Model API of the port: the dense LM, its decode step, sizing helpers."""
-from .model_zoo import init_params, make_paged_config, params_from_numpy
+"""Model API of the port: the dense LM, its decode step, sizing helpers.
 
+The names resolve lazily (PEP 562): the models call the attention
+kernels, whose plain versions import :mod:`.attention`, so importing a
+kernel module first must not pull in the models above it.
+"""
 __all__ = ["init_params", "make_paged_config", "params_from_numpy"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from . import model_zoo
+        return getattr(model_zoo, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

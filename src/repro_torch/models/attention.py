@@ -1,12 +1,12 @@
-"""Memory-efficient attention in plain PyTorch (port of
-:func:`repro.models.attention.mea_attention`).
+"""Attention in plain PyTorch (port of :mod:`repro.models.attention`).
 
-KV is scanned in chunks with a running (max, denominator, accumulator)
-carry in f32, GQA grouped without repeating KV heads -- the same
-arithmetic as the JAX function, so the two agree to f32 rounding.  It is
-deliberately not ``scaled_dot_product_attention``: the point of this slice
-is to hold the port to the JAX numbers, and the attention kernels come in
-later slices (ROADMAP.md, Queue 2).
+``mea_attention`` scans KV in chunks with a running (max, denominator,
+accumulator) carry in f32, GQA grouped without repeating KV heads -- the
+same arithmetic as the JAX function, so the two agree to f32 rounding.  It
+is the CPU path of prefill and decode; on the card those go through the
+hand-written kernels of :mod:`repro_torch.kernels`.  ``naive_attention``
+is the O(Tq * Tk) oracle behind the flash kernel's plain version.  Neither
+is ``scaled_dot_product_attention``: the port calls no library attention.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+FULL_WINDOW = 1 << 30   # "no window" sentinel
 
 
 def _mask_chunk(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -37,7 +38,6 @@ def mea_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
-    q_offset: int = 0,
     kv_valid: Optional[torch.Tensor] = None,   # [B, Tk] bool
     chunk: int = 512,
 ) -> torch.Tensor:
@@ -58,7 +58,7 @@ def mea_attention(
         kv_valid = torch.nn.functional.pad(kv_valid, (0, pad))
 
     qg = q.reshape(B, Tq, KV, G, hd).float() * scale
-    q_pos = q_offset + torch.arange(Tq, dtype=torch.int32, device=dev)
+    q_pos = torch.arange(Tq, dtype=torch.int32, device=dev)
     m_run = torch.full((B, Tq, KV, G), NEG_INF, dtype=torch.float32,
                        device=dev)
     l_run = torch.zeros((B, Tq, KV, G), dtype=torch.float32, device=dev)
@@ -81,4 +81,25 @@ def mea_attention(
                                                     vch)
         m_run = m_new
     out = acc / l_run.clamp(min=1e-30)[..., None]
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """O(Tq * Tk) oracle; ``[B, Tq, H, hd]``.  Rows with no valid key give
+    zeros."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Tq, KV, G, hd).float()
+    s = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
+    q_pos = torch.arange(Tq, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(Tk, dtype=torch.int32, device=dev)
+    mask = _mask_chunk(q_pos, k_pos, causal, window)[None, :, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    out = torch.einsum("btkgs,bskd->btkgd", p, v.float())
     return out.reshape(B, Tq, H, hd).to(q.dtype)

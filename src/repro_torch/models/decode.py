@@ -2,52 +2,29 @@
 branch of :mod:`repro.models.decode`).
 
 Each layer reads its page-mapped KV through the block tables -- the only
-data-path read of allocator-managed storage -- and the step returns the
-new token's K/V for every layer, which ``paged_kv.decode_append`` then
-writes with ONE support-core burst.
+data-path read of allocator-managed storage -- with its own window
+(:func:`repro_torch.models.transformer.layer_windows`), and the step
+returns the new token's K/V for every layer, which
+``paged_kv.decode_append`` then writes with ONE support-core burst.  The
+read is :func:`repro_torch.kernels.paged_attention.ops
+.paged_decode_attention_op` in its self mode: on the card the paged
+kernel reads the layer's pages in place; on the CPU the plain version
+gathers them and runs ``mea_attention``, as the JAX decode does.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.paged_kv import PagedKVConfig, PagedKVState, gather_kv
-from .attention import mea_attention
+from ..core.paged_kv import PagedKVState
+from ..kernels.paged_attention.ops import paged_decode_attention_op
 from .layers import apply_rope, mlp_apply, out_project, rmsnorm
-from .transformer import FULL_WINDOW, DenseLM
-
-
-def paged_decode_attention(
-    q: torch.Tensor,          # [B, H, hd] new token queries
-    k_gath: torch.Tensor,     # [B, S, KV, hd] gathered pages
-    v_gath: torch.Tensor,
-    k_new: torch.Tensor,      # [B, KV, hd] this token's K (not yet in cache)
-    v_new: torch.Tensor,
-    seq_lens: torch.Tensor,   # [B] tokens already in cache
-    active: torch.Tensor,     # [B] bool
-    window: int,
-) -> torch.Tensor:
-    """Attention of each lane's new token over its cached slots
-    ``pos < seq_len`` plus an appended self column at ``pos == seq_len``."""
-    B, S = k_gath.shape[:2]
-    dev = q.device
-    k = torch.cat([k_gath, k_new[:, None]], dim=1)
-    v = torch.cat([v_gath, v_new[:, None]], dim=1)
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-    pos = torch.cat([pos, seq_lens[:, None]], dim=1)              # [B, S+1]
-    is_self = torch.arange(S + 1, device=dev) == S
-    valid = torch.where(is_self[None, :], True, pos < seq_lens[:, None])
-    valid = valid & (pos > seq_lens[:, None] - window)
-    valid = valid & active[:, None]
-    out = mea_attention(q[:, None], k, v, causal=False, window=None,
-                        kv_valid=valid, chunk=2048)
-    return out[:, 0]
+from .transformer import DenseLM, layer_windows
 
 
 def decode_hidden(
     params: DenseLM,
     cfg: ArchConfig,
-    kvcfg: PagedKVConfig,
     paged: PagedKVState,
     tokens: torch.Tensor,               # [B] int32
 ):
@@ -60,18 +37,18 @@ def decode_hidden(
     positions = paged.seq_lens
     B = x.shape[0]
     ks, vs = [], []
-    for li, lp in enumerate(params.layers):
+    for li, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg))):
         h = rmsnorm(lp.ln_attn, x)
         q = (h @ lp.wq).reshape(B, cfg.num_heads, hd)
         k = (h @ lp.wk).reshape(B, cfg.num_kv_heads, hd)
         v = (h @ lp.wv).reshape(B, cfg.num_kv_heads, hd)
         q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
         k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
-        k_gath, v_gath, _ = gather_kv(kvcfg, paged, li)
-        attn = paged_decode_attention(q, k_gath, v_gath, k, v, paged.seq_lens,
-                                      paged.active, FULL_WINDOW)
+        attn = paged_decode_attention_op(
+            q, paged.k_pages[:, li], paged.v_pages[:, li], paged.block_tables,
+            paged.seq_lens, window, k_self=k, v_self=v, active=paged.active)
         x = x + out_project(lp.wo, attn[:, None])[:, 0]
-        x = x + mlp_apply(lp.w_in, lp.w_out, rmsnorm(lp.ln_mlp, x))
+        x = x + mlp_apply(lp.w_in, lp.w_out, rmsnorm(lp.ln_mlp, x), cfg.act)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks, dim=1), torch.stack(vs, dim=1))

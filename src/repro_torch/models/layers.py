@@ -43,11 +43,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def mlp_apply(w_in: torch.Tensor, w_out: torch.Tensor, x: torch.Tensor
-              ) -> torch.Tensor:
-    """SwiGLU MLP: ``silu(gate) * up`` with ``[gate | up] = x @ w_in``."""
+def mlp_apply(w_in: torch.Tensor, w_out: torch.Tensor, x: torch.Tensor,
+              act: str) -> torch.Tensor:
+    """Gated MLP ``act(gate) * up`` with ``[gate | up] = x @ w_in``:
+    ``swiglu`` takes SiLU, ``geglu`` the tanh form of GELU (the default of
+    ``jax.nn.gelu``; the exact GELU would be a silent mismatch)."""
     gate, up = (x @ w_in).chunk(2, dim=-1)
-    return (F.silu(gate) * up) @ w_out
+    if act == "swiglu":
+        g = F.silu(gate)
+    elif act == "geglu":
+        g = F.gelu(gate, approximate="tanh")
+    else:
+        raise NotImplementedError(f"gated MLP activation {act!r}")
+    return (g * up) @ w_out
 
 
 def dense_init(shape: tuple, dtype: torch.dtype, device: torch.device,

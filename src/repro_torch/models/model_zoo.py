@@ -88,15 +88,17 @@ def make_paged_config(
     scratch_slots: int | None = None,
 ) -> PagedKVConfig:
     """Size the page pool for ``lanes`` sequences of up to ``seq_len``
-    tokens (the JAX package's sizing, full-attention case).
+    tokens (the JAX package's sizing).  ``local_global`` sizes as full
+    attention: its global layers keep every page live, so no page is
+    recycled and the stash is tuned without a window.
 
     Stash knobs left ``None`` are derived by :func:`autotune_stash`;
     ``scratch_slots=None`` means one workspace slot per lane.  The pool is
     rounded up to a multiple of 512 pages.
     """
-    if cfg.attn_pattern != "full":
+    if cfg.attn_pattern not in ("full", "local_global"):
         raise NotImplementedError(
-            "windowed attention patterns wait for a later slice "
+            "sliding-window page recycling waits for a later slice "
             "(ROADMAP.md, Queue 1)")
     live_pages = math.ceil((seq_len + 1) / page_size)
     if stash_size is None or stash_watermark is None or stash_refill is None:

@@ -18,19 +18,34 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .attention import mea_attention
+from ..kernels.flash_attention.ops import flash_attention_op
+from .attention import FULL_WINDOW, mea_attention
 from .layers import (apply_rope, dense_init, init_embedding, mlp_apply,
                      out_project, qkv_project, rmsnorm)
-
-FULL_WINDOW = 1 << 30   # "no window" sentinel
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def layer_windows(cfg: ArchConfig) -> list[int]:
+    """Attention window of each layer (``FULL_WINDOW`` = none).  Under
+    ``local_global`` every ``local_per_global + 1``-th layer is global and
+    the others see ``cfg.window`` tokens (gemma3's 5:1 pattern)."""
+    n = cfg.num_attn_layers
+    if cfg.attn_pattern == "full":
+        return [FULL_WINDOW] * n
+    if cfg.attn_pattern == "local_global":
+        period = cfg.local_per_global + 1
+        return [FULL_WINDOW if i % period == cfg.local_per_global
+                else cfg.window for i in range(n)]
+    raise NotImplementedError(
+        f"attention pattern {cfg.attn_pattern!r} waits for a later slice "
+        f"(ROADMAP.md, Queue 1)")
+
+
 class AttnBlock(nn.Module):
-    """Pre-norm attention + SwiGLU MLP block."""
+    """Pre-norm attention + gated MLP block."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator]):
@@ -61,12 +76,14 @@ class DenseLM(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.family != "dense" or cfg.attn_pattern != "full" \
-                or cfg.qkv_bias or cfg.act != "swiglu" or cfg.norm != "rmsnorm":
+        if cfg.family != "dense" \
+                or cfg.attn_pattern not in ("full", "local_global") \
+                or cfg.qkv_bias or cfg.act not in ("swiglu", "geglu") \
+                or cfg.norm != "rmsnorm":
             raise NotImplementedError(
-                f"repro_torch serves the dense full-attention SwiGLU/RMSNorm "
-                f"family so far; {cfg.name!r} needs a later slice "
-                f"(ROADMAP.md, Queue 1)")
+                f"repro_torch serves the dense RMSNorm family with full or "
+                f"local:global attention and a gated MLP so far; "
+                f"{cfg.name!r} needs a later slice (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab_size
         if gen is None:
@@ -93,8 +110,8 @@ class DenseLM(nn.Module):
         per-layer ``(k, v)``, each ``[num_layers, B, S, KV, hd]``."""
         x = self.embed[tokens.long()]
         ks, vs = [], []
-        for lp in self.layers:
-            x, (k, v) = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW)
+        for lp, window in zip(self.layers, layer_windows(self.cfg)):
+            x, (k, v) = _attn_block_seq(self.cfg, lp, x, window)
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -105,21 +122,27 @@ class DenseLM(nn.Module):
 
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
-                    window: int, q_offset: int = 0):
-    """One block over a full sequence; returns ``(x, (k, v))``."""
+                    window: int):
+    """One block over a full sequence; returns ``(x, (k, v))``.
+
+    Causal attention goes through the flash kernel for CUDA tensors and
+    through ``mea_attention`` -- the JAX prefill's own arithmetic, which
+    keeps the CPU path within f32 rounding of the JAX package -- for CPU
+    tensors."""
     hd = cfg.resolved_head_dim
     h = rmsnorm(lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
                           cfg.num_kv_heads, hd)
-    positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
-                                        device=x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    attn = mea_attention(q, k, v, causal=True, window=window,
-                         q_offset=q_offset)
+    if x.device.type == "cuda":
+        attn = flash_attention_op(q, k, v, causal=True, window=window)
+    else:
+        attn = mea_attention(q, k, v, causal=True, window=window)
     x = x + out_project(lp.wo, attn)
     h = rmsnorm(lp.ln_mlp, x)
-    return x + mlp_apply(lp.w_in, lp.w_out, h), (k, v)
+    return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act), (k, v)
 
 
 def init_lm_params(cfg: ArchConfig, gen: torch.Generator,

@@ -39,6 +39,7 @@ class EngineStats:
     preemptions: int = 0           # running lanes evicted by the scheduler
     alloc_failures: int = 0        # failed malloc packets
     hmq_admit_bursts: int = 0      # support-core steps issued for admission
+    prefill_passes: int = 0        # prefill forward passes (one per bucket)
     hmq_release_bursts: int = 0    # release/eviction bursts issued
     # --- stash front-end telemetry ---
     decode_bursts: int = 0         # decode steps whose burst had a live packet
@@ -200,6 +201,7 @@ class ServingEngine:
             res = self._prefill(self.params, {
                 "tokens": torch.as_tensor(toks, device=dev),
                 "lengths": torch.as_tensor(lengths, device=dev)})
+            self.stats.prefill_passes += 1
             all_next.append(res.last_logits[:k].argmax(dim=-1).to(I32))
             all_lanes.extend(int(it.lane) for it in group)
             all_len.extend(int(n) for n in lengths[:k])

@@ -1,10 +1,11 @@
 """Serving steps: decode (one token per lane per step) and prefill (port of
 :mod:`repro.serve.serve_step`, dense family).
 
-The decode step reads paged KV through the block tables and ends with
-exactly ONE support-core burst (``decode_append``).  PyTorch runs eagerly,
-so there is no compiled executable to count: the JAX package's
-``CountingJit`` has no counterpart here.
+The decode step reads paged KV through the block tables (the paged
+attention kernel on the card) and ends with exactly ONE support-core burst
+(``decode_append``); the prefill's attention is the flash kernel on the
+card.  PyTorch runs eagerly, so there is no compiled executable to count:
+the JAX package's ``CountingJit`` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -84,7 +85,7 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     """
     def serve_step(params: DenseLM, state: ServeState):
         hidden, (new_k, new_v) = decode_hidden(
-            params, cfg, kvcfg, state.paged, state.tokens)
+            params, cfg, state.paged, state.tokens)
         logits = decode_logits(params, hidden)
         next_tokens = logits.argmax(dim=-1).to(I32)
         paged, stats = decode_append(kvcfg, state.paged, new_k, new_v,

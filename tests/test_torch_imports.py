@@ -3,6 +3,10 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX
   or anything of the JAX package ``repro`` (an AST scan, so lazy imports
   inside functions count too).
+* No module of ``src/repro_torch`` calls a library attention or compiler
+  (``scaled_dot_product_attention``, cuDNN, ``torch.compile``): its
+  kernels are written by hand.  ``chip_smoke.py`` may time one as a
+  yardstick.
 * Without a card, an entry point called without ``device="cpu"`` raises
   instead of falling back to the CPU.
 * The kernel wrapper on CPU tensors runs the plain version and leaves its
@@ -37,15 +41,37 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES[:-1]])
+def test_port_calls_no_library_attention(path):
+    used = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute):
+            used.add(node.attr)
+            if node.attr == "compile" and isinstance(node.value, ast.Name) \
+                    and node.value.id == "torch":
+                used.add("torch.compile")
+        elif isinstance(node, ast.Name):
+            used.add(node.id)
+    bad = used & {"scaled_dot_product_attention", "cudnn", "torch.compile",
+                  "flash_attn"}
+    assert not bad, f"{path.relative_to(ROOT)} uses {sorted(bad)}"
+
+
 def test_port_has_its_modules():
     """Every module of the slice sits under the JAX package's name."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in PORT_FILES[:-1]}
     for mod in ("configs/base.py", "configs/deepseek_7b.py",
+                "configs/gemma3_1b.py",
                 "core/packets.py", "core/freelist.py", "core/hmq.py",
                 "core/support_core.py", "core/lane_stash.py",
-                "core/paged_kv.py", "kernels/support_core/ops.py",
-                "kernels/support_core/ref.py", "alloc/policies.py",
+                "core/paged_kv.py", "kernels/_build.py",
+                "kernels/support_core/ops.py", "kernels/support_core/ref.py",
+                "kernels/paged_attention/ops.py",
+                "kernels/paged_attention/ref.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "alloc/policies.py",
                 "alloc/service.py", "models/layers.py", "models/attention.py",
                 "models/transformer.py", "models/decode.py",
                 "models/model_zoo.py", "serve/serve_step.py",

@@ -1,16 +1,15 @@
 #!/usr/bin/env python3
 """Where the port's decode step spends its time on one NVIDIA card.
 
-    python3 tools/profile_torch_serve.py [--steps 8]
+    python3 tools/profile_torch_serve.py [--arch deepseek-7b|gemma3-1b] [--steps 8]
 
-Serves the same workload as ``chip_smoke.py``'s full-width phase
-(deepseek-7b at its published widths, bf16, seeded random weights; 8
-synthetic requests, 4 lanes, 8-token pages), admits the first batch, runs
-three decode steps to warm up, then traces ``--steps`` decode steps with
-``torch.profiler``.  Prints the window's wall time, the summed device
-kernel time and the device's idle share, kernel time by name, and the
-support-core kernel's share.  Fails when the profiler records no device
-time.
+Serves the workload of ``chip_smoke.py``'s full-width phase for ``--arch``
+(published widths, bf16, seeded random weights; its requests, 4 lanes,
+its page size), admits the first batch, runs three decode steps to warm
+up, then traces ``--steps`` decode steps with ``torch.profiler``.  Prints
+the window's wall time, the summed device kernel time and the device's
+idle share, kernel time by name, and the shares of the port's kernels and
+of device copies.  Fails when the profiler records no device time.
 """
 from __future__ import annotations
 
@@ -20,22 +19,30 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+# kernel-name fragments of each share the summary reports
+SHARES = {"support-core kernel": ("support_core",),
+          "paged attention kernel": ("paged_attention",),
+          "device copies": ("copy", "Copy")}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="deepseek-7b",
+                    choices=["deepseek-7b", "gemma3-1b"])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
+    from chip_smoke import SERVE_LANES, WORKLOADS, make_requests
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import synth_requests
     from repro_torch.models import init_params, make_paged_config
     from repro_torch.serve.engine import ServingEngine, run_admission
     from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
@@ -43,14 +50,14 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = get_config("deepseek-7b")
+    cfg, wl = get_config(args.arch), WORKLOADS[args.arch]
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    kvcfg = make_paged_config(cfg, seq_len=256, lanes=4, page_size=8,
-                              dtype=torch.bfloat16)
-    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=128)
+    kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
+                              page_size=wl["page"], dtype=torch.bfloat16)
+    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device="cuda")
     sched = Scheduler(scfg)
-    for req in synth_requests(cfg, 8, np.random.RandomState(0)):
+    for req in make_requests(cfg, wl, wl["prompt_lens"]):
         req.max_new_tokens = 3 + args.steps + 1
         sched.submit(req)
     run_admission(eng, sched)
@@ -72,10 +79,10 @@ def main() -> None:
     if device_us <= 0:
         raise SystemExit("profile_torch_serve: the profiler recorded no "
                          "device time")
-    print(f"{args.steps} decode steps, {int(eng.state.paged.active.sum())} "
-          f"active lanes: wall {wall_us / 1e3:.2f} ms "
-          f"({wall_us / args.steps / 1e3:.2f} ms/step), device kernels "
-          f"{device_us / 1e3:.2f} ms, device idle share "
+    print(f"{args.arch}: {args.steps} decode steps, "
+          f"{int(eng.state.paged.active.sum())} active lanes: wall "
+          f"{wall_us / 1e3:.2f} ms ({wall_us / args.steps / 1e3:.2f} ms/step), "
+          f"device kernels {device_us / 1e3:.2f} ms, device idle share "
           f"{1 - device_us / wall_us:.3f}")
     launches = sum(e.count for e in kernels)
     print(f"{launches} kernel launches ({launches / args.steps:.0f}/step)")
@@ -83,10 +90,12 @@ def main() -> None:
                     )[:args.top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:100]}")
-    sc = sum(e.self_device_time_total for e in kernels
-             if "support_core" in e.key)
-    print(f"support-core kernel: {sc / 1e3:.3f} ms "
-          f"({sc / device_us:.4f} of device time)")
+    for label, frags in SHARES.items():
+        us = sum(e.self_device_time_total for e in kernels
+                 if any(f in e.key for f in frags))
+        n = sum(e.count for e in kernels if any(f in e.key for f in frags))
+        print(f"{label}: {us / 1e3:.3f} ms in {n} launches "
+              f"({us / device_us:.4f} of device time)")
 
 
 if __name__ == "__main__":
