@@ -7,8 +7,10 @@ Phases, each failing loudly (non-zero exit, no result line):
 
 1.  card     -- the card's name and power limit, torch and CUDA versions;
 2.  build    -- compile the three CUDA kernels from the checkout's sources
-               (one ``nvcc`` each, ``sm_90a``, started together) and print
-               each build time;
+               (one ``nvcc`` each, ``sm_90a``, started together), print
+               each build time and the attention kernels' ``-Xptxas -v``
+               lines (registers, shared memory, spills); the tensor-core
+               flash kernel must not spill;
 3.  kernels  -- each kernel against its plain PyTorch version on the card:
                the support-core burst bit for bit (directed cases, the
                sweep shapes, a large shape, a 50-burst trace); paged decode
@@ -16,15 +18,21 @@ Phases, each failing loudly (non-zero exit, no result line):
                f32 and bf16, the serving shapes of both configurations, the
                NO_BLOCK slot, shared vs private tables (bit-identical), the
                self mode on a pool layer with inactive lanes and a page
-               boundary, and a ragged Tq; then times per launch at the
-               serving shapes beside the plain version, the bound and, for
-               flash, ``scaled_dot_product_attention`` (timed here only);
+               boundary, and a ragged Tq; bf16 flash edge cases (T, window,
+               hd and G swept, queries scaled by 8 so scores reach +-30);
+               paged lanes spanning no, one and every split of the context,
+               against both plain versions; two identical launches of each
+               kernel bit-identical; then times per launch at the serving
+               shapes beside the plain version, the bound and, for flash,
+               ``scaled_dot_product_attention`` (causal, or with a boolean
+               band mask for the window; timed here only);
 4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
                the port's scheduler and engine: every support-core burst,
                decode attention and prefill attention of that run must be
                a kernel launch, and the allocator invariants must hold with
-               no live page at the end;
+               no live page at the end; prints the median wall time of a
+               prefill pass (ending in ``torch.cuda.synchronize()``);
 4b. serve    -- gemma3-1b at its published widths (26 layers, windows of
                512 on five layers in six, GQA 4:1) the same way, with
                prompts of 600-1500 tokens so the window binds;
@@ -405,6 +413,98 @@ def flash_parity(dev, errs: Errors) -> None:
           f"max_abs_err={errs.max['flash']:.3e}")
 
 
+def flash_edge_parity(dev, errs: Errors) -> None:
+    """The tensor-core kernel's edges in bf16: lengths around a 64-row
+    tile, windows of 1, 100 and 512, every serving head width and group
+    size; queries scaled by 8 so scores reach +-30 and the online softmax
+    rescales with P rounded to bf16."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(4)
+    n = 0
+    for T in (1, 63, 65, 200, 2048):
+        for window in (1, 100, 512):
+            for hd in (64, 128, 256):
+                for G in (1, 4, 8):
+                    q = (torch.as_tensor(rng.randn(1, T, 2 * G, hd)
+                                         .astype(np.float32), device=dev)
+                         * 8).to(torch.bfloat16)
+                    k = rand(rng, (1, T, 2, hd), torch.bfloat16, dev)
+                    v = rand(rng, (1, T, 2, hd), torch.bfloat16, dev)
+                    errs.check("flash", f"edge T={T} w={window} hd={hd} "
+                               f"G={G} bf16 x8",
+                               flash_attention_op(q, k, v, window=window),
+                               flash_attention_ref(q, k, v, window=window),
+                               torch.bfloat16)
+                    n += 1
+    torch.cuda.synchronize()
+    print(f"  flash attention: {n} bf16 edge cases within tolerance, "
+          f"max_abs_err={errs.max['flash']:.3e}")
+
+
+def paged_split_parity(dev, errs: Errors) -> None:
+    """Lanes whose live range spans no split (inactive), one split,
+    exactly one chunk, and every split, at the serving layouts, in both
+    modes, against the plain version and the plain split-and-merge with
+    the planner's chunk."""
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as op
+    from repro_torch.kernels.paged_attention.ops import plan_splits
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_plain, paged_attention_split)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.RandomState(5)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for KV, G, hd, ps, P in ((1, 4, 256, 16, 129), (32, 1, 128, 8, 33)):
+            for window in (FULL, 512):
+                splits, chunk = plan_splits(4, KV, G, P, ps, window, sms)
+                seq = [5, chunk - 1, min(P * ps - 1, window + 40), 9]
+                case = paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P, 2,
+                                       seq, [True, True, True, False])
+                for self_mode in (False, True):
+                    args, kw = paged_args(case, window, self_mode)
+                    got = op(*args, **kw)
+                    what = (f"split KV={KV} G={G} hd={hd} w={window} "
+                            f"self={self_mode} {splits}x{chunk} {dt}")
+                    errs.check("paged", what, got,
+                               paged_attention_plain(*args, **kw), dt)
+                    errs.check("paged", what + " (split plain)", got,
+                               paged_attention_split(*args, chunk, **kw), dt)
+                    n += 2
+    torch.cuda.synchronize()
+    print(f"  paged attention: {n} split cases within tolerance (lanes over "
+          f"0, 1 and all splits), max_abs_err={errs.max['paged']:.3e}")
+
+
+def determinism(dev) -> None:
+    """Two identical launches of each kernel give identical bits."""
+    from repro_torch.core.freelist import init_freelist
+    from repro_torch.core.hmq import schedule
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as op
+    from repro_torch.kernels.support_core.ops import support_core_burst
+    rng = np.random.RandomState(6)
+    state = init_freelist([512, SERVE_LANES], device=dev)
+    sched, _ = schedule(random_queue(rng, 24, 2, 512, 7, dev,
+                                     lanes=SERVE_LANES))
+    runs = {"support core": lambda: support_core_burst(state, sched, 7)[0]}
+    case = paged_pool_case(rng, dev, torch.bfloat16, 4, 1, 4, 256, 16, 129,
+                           2, [1400, 1024, 700, 611], [True] * 4)
+    args, kw = paged_args(case, FULL, True)
+    runs["paged"] = lambda: (op(*args, **kw),)
+    q = rand(rng, (4, 1536, 4, 256), torch.bfloat16, dev)
+    kv = rand(rng, (4, 1536, 1, 256), torch.bfloat16, dev)
+    runs["flash"] = lambda: (flash_attention_op(q, kv, kv, window=FULL),)
+    for name, fn in runs.items():
+        a, b = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"{name} kernel: two identical launches differ")
+    print(f"  determinism: two identical launches bit-identical for "
+          f"{', '.join(runs)}")
+
+
 def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
     """The decode call at a serving shape: bf16, self mode on one layer of
     an L-layer pool, every lane active."""
@@ -434,8 +534,9 @@ def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
 
 def time_flash(dev, B, T, H, KV, hd, window) -> dict:
     """Causal bf16 prefill attention at a serving shape; the library
-    yardstick is ``scaled_dot_product_attention`` (no window: it has
-    none), timed here and called nowhere in the port."""
+    yardstick is ``scaled_dot_product_attention`` (``is_causal``, or a
+    boolean band mask for a window), timed here and called nowhere in the
+    port."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.RandomState(3)
@@ -446,12 +547,17 @@ def time_flash(dev, B, T, H, KV, hd, window) -> dict:
                                               window=window), n=30)
     plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, causal=True,
                                                      window=window), n=10)
-    library_ms = None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window >= T:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), n=30)
+        library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True), n=30)
+    else:
+        pos = torch.arange(T, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+        library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=band,
+                                            enable_gqa=True), n=30)
     pairs = sum(min(i + 1, window) for i in range(T))
     ops = 4 * hd * pairs * B * H
     nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * KV * hd)
@@ -459,10 +565,9 @@ def time_flash(dev, B, T, H, KV, hd, window) -> dict:
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     shape = dict(B=B, T=T, H=H, KV=KV, hd=hd, window=window, pairs=pairs)
-    lib = "n/a" if library_ms is None else f"{library_ms * 1e3:.1f} us"
-    print(f"  time flash {shape}: kernel {ms * 1e3:.1f} us/launch, plain "
-          f"{plain_ms * 1e3:.1f} us, SDPA {lib}, bound {bound * 1e3:.2f} us "
-          f"({by})")
+    print(f"  time flash {shape}: kernel {ms * 1e3:.2f} us/launch, plain "
+          f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.2f} us ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=library_ms, shape=shape)
 
@@ -484,7 +589,24 @@ def make_requests(cfg, wl, prompt_lens):
                     .astype(np.int32)) for i, n in enumerate(lens)]
 
 
-def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False):
+def time_prefill_passes(eng, times_us: list) -> None:
+    """Wrap the engine's prefill so that each pass's wall time, from a
+    synchronised start to ``torch.cuda.synchronize()``, lands in
+    ``times_us``."""
+    inner = eng._prefill
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        times_us.append((time.perf_counter() - t0) * 1e6)
+        return res
+    eng._prefill = timed
+
+
+def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
+          prefill_us=None):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
@@ -493,6 +615,8 @@ def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False):
                               page_size=wl["page"], dtype=dtype)
     scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
+    if prefill_us is not None:
+        time_prefill_passes(eng, prefill_us)
     sched = Scheduler(scfg)
     reqs = make_requests(cfg, wl, prompt_lens)
     step_us: list = []
@@ -531,9 +655,11 @@ def serve_full_width(dev, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = PAGED_KERNEL.launches = FLASH_KERNEL.launches = 0
     t0 = time.perf_counter()
+    prefill_us: list = []
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
                                              dev, wl, wl["prompt_lens"],
-                                             verbose=True)
+                                             verbose=True,
+                                             prefill_us=prefill_us)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(support_core_burst=KERNEL.launches,
@@ -562,14 +688,18 @@ def serve_full_width(dev, arch: str) -> dict:
     tps = decode_tokens / (sum(step_us) / 1e6)
     med = statistics.median(step_us) / 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
+    prefill_ms = statistics.median(prefill_us) / 1e3
     print(f"  decode {tps:.1f} tokens/s, median decode step {med:.2f} ms, "
           f"peak GPU memory {peak:.2f} GiB")
+    print(f"  prefill: {len(prefill_us)} passes, median {prefill_ms:.2f} ms "
+          f"wall (each {', '.join(f'{u / 1e3:.2f}' for u in prefill_us)} "
+          f"ms)")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
     del eng, params
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
-                peak_gib=peak)
+                peak_gib=peak, median_prefill_ms=prefill_ms)
 
 
 def top2_margin(cfg, params_cpu, tokens) -> float:
@@ -626,6 +756,50 @@ def device_vs_cpu(dev, arch: str) -> None:
           f"bit-identical")
 
 
+def kernel_signature(name: str) -> str:
+    """A demangled kernel name without its return type, namespaces and
+    parameter list: ``flash_mma_kernel<(int)256>``."""
+    name = name.replace("<unnamed>::", "").replace("(anonymous namespace)::",
+                                                   "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i > 0:
+            name = name[:i]
+            break
+    head, sep, tail = name.removeprefix("void ").partition("<")
+    return head.split("::")[-1] + sep + tail
+
+
+def print_ptxas(kernels) -> None:
+    """Each kernel entry's registers, static shared memory and spills as
+    ``-Xptxas -v`` printed them (demangled by the toolkit's ``cu++filt``
+    when it has one); fails when the tensor-core flash kernel spills."""
+    from repro_torch.kernels._build import _nvcc, ptxas_report
+    filt = Path(_nvcc()).parent / "cu++filt"
+    spills = []
+    for k in kernels:
+        rows = ptxas_report(k.build_log)
+        if not rows:
+            fail(f"{k.name}: no -Xptxas -v output in its build log")
+        names = [r["name"] for r in rows]
+        if filt.exists():
+            res = subprocess.run([str(filt)], input="\n".join(names),
+                                 capture_output=True, text=True)
+            if res.returncode == 0 and len(res.stdout.splitlines()) == len(rows):
+                names = res.stdout.splitlines()
+        for r, name in zip(rows, names):
+            short = kernel_signature(name)
+            print(f"  ptxas {k.name}: {short}: {r['registers']} registers, "
+                  f"{r['smem']} bytes static smem, {r['spill_stores']} / "
+                  f"{r['spill_loads']} bytes spill stores / loads")
+            if "flash_mma_kernel" in r["name"] and (r["spill_stores"]
+                                                    or r["spill_loads"]):
+                spills.append(short)
+    if spills:
+        fail(f"tensor-core flash kernel spills: {', '.join(spills)}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -649,6 +823,7 @@ def main() -> None:
     build_all(kernels)
     for k in kernels:
         print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
+    print_ptxas((PAGED_KERNEL, FLASH_KERNEL))
 
     print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
@@ -658,7 +833,10 @@ def main() -> None:
                          caps=[65536] * 8)
     errs = Errors()
     paged_parity(dev, errs)
+    paged_split_parity(dev, errs)
     flash_parity(dev, errs)
+    flash_edge_parity(dev, errs)
+    determinism(dev)
     t_paged = {
         "deepseek-7b": time_paged(dev, 4, 32, 1, 128, 8, 33, 30,
                                   [119, 104, 87, 112], FULL),

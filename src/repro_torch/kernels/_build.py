@@ -5,6 +5,9 @@ use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library,
 named by the source's content hash, under ``build/kernels/`` at the
 repository root, and loaded with ``ctypes``.  Every C entry point returns
 ``cudaGetLastError()``; :meth:`Kernel.check` raises when it is not 0.
+``nvcc`` runs with ``-Xptxas -v``: what it printed is kept beside the
+library (``.log``) and in :attr:`Kernel.build_log`, and
+:func:`ptxas_report` reads each kernel's registers and spills from it.
 Nothing here runs when a module is imported.
 """
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +24,7 @@ from typing import Callable, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -50,6 +54,7 @@ class Kernel:
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self.so_path: Optional[Path] = None
+        self.build_log = ""      # nvcc's output for the loaded library
 
     def _start(self) -> Optional[tuple]:
         """Start ``nvcc`` unless the library exists; ``(proc, cmd, tmp)``."""
@@ -71,7 +76,10 @@ class Kernel:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{out}")
+            self.so_path.with_suffix(".log").write_text(out)
             os.replace(tmp, self.so_path)
+        log = self.so_path.with_suffix(".log")
+        self.build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(self.so_path))
         self._bind(lib)
         self.lib = lib
@@ -98,3 +106,30 @@ def build_all(kernels: Sequence[Kernel]) -> None:
     started = [k._start() for k in todo]
     for k, s in zip(todo, started):
         k._finish(s, t0)
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One dict per kernel entry in ``nvcc -Xptxas -v`` output: its
+    (mangled) ``name``, ``registers``, ``spill_stores``/``spill_loads``
+    (bytes) and ``smem`` (static shared memory, bytes)."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append(dict(name=m.group(1), registers=None, spill_stores=0,
+                            spill_loads=0, smem=0))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[-1]["smem"] = int(m.group(1))
+    return out

@@ -19,11 +19,19 @@ read from them at position ``seq_len`` while the pages give ``pos <
 seq_len``; inactive lanes give zeros.  This is not the JAX op called with
 ``seq_len - 1``: that would move the window by one.
 
-:data:`PAGED_KERNEL` counts launches.
+On the card the op splits each lane's context into chunks across blocks
+and merges the chunks' partial softmax states in a second pass
+(flash-decoding); :func:`plan_splits` picks the split from the shapes
+alone, and :func:`.ref.paged_attention_split` is the plain version of
+that arithmetic.
+
+:data:`PAGED_KERNEL` counts op calls (one per call, whether the call
+launches one pass or two).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -35,12 +43,41 @@ from .ref import paged_attention_plain
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEADS_PER_BLOCK = 8   # MAXG of the kernel: query heads one block takes
+MIN_CHUNK = 32            # positions a split takes at the least
+
+
+def plan_splits(B: int, KV: int, G: int, P: int, ps: int, window: int,
+                sm_count: int) -> tuple[int, int]:
+    """``(n_splits, chunk)`` for one op call, from shapes alone.
+
+    A lane's live positions number at most ``span = min(window, P * ps) +
+    1`` (the cached window plus the self position); chunk ``s`` takes live
+    indices ``[s * chunk, (s + 1) * chunk)``, so ``n_splits * chunk >=
+    span`` covers every lane whatever its ``seq_len``.  The split fills
+    one wave of blocks, ``sm_count // (B * KV * ceil(G / 8))`` splits,
+    with chunks of at least ``MIN_CHUNK`` positions; one split when the
+    unsplit grid already fills half the card or more (the merge pass
+    costs more than a second wave saves: deepseek-7b's 128 blocks) or
+    when the span fits one chunk.  ``seq_lens`` is never read: it lives
+    on the device, and reading it would cost the decode step a host
+    sync."""
+    span = max(1, min(window, P * ps) + 1)
+    blocks = B * KV * -(-G // MAX_HEADS_PER_BLOCK)
+    want = max(1, sm_count // blocks)
+    chunk = max(MIN_CHUNK, -(-span // want))
+    return -(-span // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.paged_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.paged_attention_launch.restype = ctypes.c_int
 
 
@@ -113,16 +150,21 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, window, k_self,
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
         _check(active, "active", (B,), torch.bool, q.device)
+    n_splits, chunk = plan_splits(B, KV, H // KV, P, ps, window,
+                                  _sm_count(q.device))
     PAGED_KERNEL.build()
     out = torch.empty_like(q)
+    part = None if n_splits == 1 else torch.empty(
+        B * H * n_splits * (hd + 2), dtype=torch.float32, device=q.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
     err = PAGED_KERNEL.lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), ptr(k_self),
-        ptr(v_self), ptr(active), out.data_ptr(), B, H, KV, hd, ps, P,
-        *k_pages.stride()[:3], window, _DTYPE_CODE[dt],
+        ptr(v_self), ptr(active), out.data_ptr(), ptr(part), B, H, KV, hd, ps,
+        P, *k_pages.stride()[:3], window, chunk, n_splits, _DTYPE_CODE[dt],
         torch.cuda.current_stream(q.device).cuda_stream)
-    PAGED_KERNEL.check(err, f"B={B} H={H} KV={KV} hd={hd} ps={ps} P={P}")
+    PAGED_KERNEL.check(err, f"B={B} H={H} KV={KV} hd={hd} ps={ps} P={P} "
+                            f"splits={n_splits}x{chunk}")
     PAGED_KERNEL.launches += 1
     return out
 

@@ -12,6 +12,9 @@
   decode does.
 * :func:`paged_attention_plain` -- the kernel's plain version with the
   op's arguments, choosing between the two by the self mode.
+* :func:`paged_attention_split` -- the kernel's split-and-merge
+  arithmetic in plain PyTorch: per-chunk softmax states ``(m, l, acc)``
+  in f32, merged in split order (both modes).
 """
 from __future__ import annotations
 
@@ -107,3 +110,66 @@ def paged_attention_plain(
     out = paged_attention_ref(q.reshape(B, KV, H // KV, hd), k_pages,
                               v_pages, tables, seq_lens, window)
     return out.reshape(B, H, hd)
+
+
+def paged_attention_split(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_tables: torch.Tensor, seq_lens: torch.Tensor, window: int,
+    chunk: int, k_self: Optional[torch.Tensor] = None,
+    v_self: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``[B, H, hd]`` as the kernel computes it with chunks of ``chunk``
+    live positions.
+
+    A lane's live index ``t`` runs over the cached positions ``lo + t``
+    for ``lo <= pos <= hi`` and then, in the self mode, the self position;
+    chunk ``s`` takes ``s * chunk <= t < (s + 1) * chunk``, for as many
+    chunks as :func:`.ops.plan_splits` covers the longest span with.
+    Each chunk gives its max ``m``, denominator ``l`` and accumulator in
+    f32 (``m = -inf``, ``l = 0`` when empty); the merge takes the max over
+    the chunks and sums the rescaled states in chunk order."""
+    B, H, hd = q.shape
+    ps, KV = k_pages.shape[1], k_pages.shape[2]
+    P = block_tables.shape[1]
+    S = P * ps
+    self_mode = k_self is not None
+    k = gather_pages(k_pages, block_tables).float()        # [B, S, KV, hd]
+    v = gather_pages(v_pages, block_tables).float()
+    seq = seq_lens.long()[:, None]
+    pos = torch.arange(S, device=q.device)[None, :]
+    lo = (seq - window + 1).clamp(min=0)
+    hi = (seq - 1 if self_mode else seq).clamp(max=S - 1)
+    valid = (pos >= lo) & (pos <= hi)                       # [B, S]
+    t = pos - lo
+    if self_mode:
+        k = torch.cat([k, k_self[:, None].float()], dim=1)
+        v = torch.cat([v, v_self[:, None].float()], dim=1)
+        n_cache = (hi - lo + 1).clamp(min=0)
+        valid = torch.cat([valid, torch.full_like(n_cache, window > 0,
+                                                  dtype=torch.bool)], dim=1)
+        t = torch.cat([t, n_cache], dim=1)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, KV, H // KV, hd) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k)              # [B, KV, G, S']
+    span = max(1, min(window, S) + 1)
+    m_all, l_all, acc_all = [], [], []
+    for split in range(-(-span // chunk)):
+        mask = (valid & (t // chunk == split))[:, None, None, :]
+        sm = torch.where(mask, s, -math.inf)
+        m = sm.amax(dim=-1, keepdim=True)                   # [B, KV, G, 1]
+        p = torch.where(mask, torch.exp(sm - m), 0.0)
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1, keepdim=True))
+        acc_all.append(torch.einsum("bkgs,bskd->bkgd", p, v))
+    mx = torch.stack(m_all).amax(dim=0)
+    den = torch.zeros_like(l_all[0])
+    num = torch.zeros_like(acc_all[0])
+    for m, l, acc in zip(m_all, l_all, acc_all):
+        f = torch.where(l > 0, torch.exp(m - mx), 0.0)
+        den = den + l * f
+        num = num + acc * f
+    out = (num / den.clamp(min=1e-30)).reshape(B, H, hd)
+    if active is not None:
+        out = torch.where(active[:, None, None], out, 0.0)
+    return out.to(q.dtype)

@@ -24,7 +24,9 @@ from repro.models.decode import \
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FLASH_KERNEL, flash_attention_op)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    PAGED_KERNEL, paged_decode_attention_op)
+    PAGED_KERNEL, paged_decode_attention_op, plan_splits)
+from repro_torch.kernels.paged_attention.ref import \
+    paged_attention_split  # noqa: E402
 
 TOL = 2e-5
 FULL = 1 << 30
@@ -199,8 +201,11 @@ def test_cpu_tensors_launch_nothing(rng):
 @pytest.mark.cuda
 def test_attention_kernels_match_plain_on_card():
     """Both kernels against their plain versions on the card over the JAX
-    sweeps in f32 and bf16, the self mode included (``chip_smoke.py``
-    runs the serving shapes)."""
+    sweeps in f32 and bf16, then the redesigned kernels' edges: bf16 flash
+    around a 64-row tile with windows of 1, 100 and 512, hd 64-256, G 1-8
+    and queries scaled by 8; paged lanes over no, one and every split of
+    the context, against both plain versions; two identical launches
+    bit-identical (``chip_smoke.py`` runs the serving shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.RandomState(3)
@@ -224,3 +229,50 @@ def test_attention_kernels_match_plain_on_card():
             want = flash_attention_op(q, k, v, causal=causal, window=window)
             torch.testing.assert_close(got.cpu().float(), want.float(),
                                        rtol=tol, atol=tol)
+    bf = torch.bfloat16
+    for T in (1, 63, 65, 200, 2048):
+        for window in (1, 100, 512):
+            for hd in (64, 128, 256):
+                for G in (1, 4, 8):
+                    q = (torch.as_tensor(rng.randn(1, T, 2 * G, hd)) * 8
+                         ).to(bf)
+                    k, v = (torch.as_tensor(rng.randn(1, T, 2, hd)).to(bf)
+                            for _ in range(2))
+                    got = flash_attention_op(q.cuda(), k.cuda(), v.cuda(),
+                                             window=window)
+                    assert torch.equal(got, flash_attention_op(
+                        q.cuda(), k.cuda(), v.cuda(), window=window))
+                    want = flash_attention_op(q, k, v, window=window)
+                    torch.testing.assert_close(got.cpu().float(),
+                                               want.float(), rtol=3e-2,
+                                               atol=3e-2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, tol in ((torch.float32, TOL), (bf, 2e-2)):
+        for KV, G, hd, ps, P in ((1, 4, 256, 16, 129), (32, 1, 128, 8, 33)):
+            for window in (FULL, 512):
+                _, chunk = plan_splits(4, KV, G, P, ps, window, sms)
+                seq = np.asarray([5, chunk - 1, min(P * ps - 1, window + 40),
+                                  9], np.int32)
+                n = 4 * P + 2
+                cpu = [torch.as_tensor(rng.randn(4, KV * G, hd)).to(dt),
+                       torch.as_tensor(rng.randn(n, ps, KV, hd)).to(dt),
+                       torch.as_tensor(rng.randn(n, ps, KV, hd)).to(dt),
+                       torch.as_tensor(rng.permutation(n)[:4 * P]
+                                       .reshape(4, P).astype(np.int32)),
+                       torch.as_tensor(seq)]
+                kw = dict(k_self=torch.as_tensor(rng.randn(4, KV, hd)).to(dt),
+                          v_self=torch.as_tensor(rng.randn(4, KV, hd)).to(dt),
+                          active=torch.tensor([True, True, True, False]))
+                for mode in ({}, kw):
+                    dev_kw = {k: x.cuda() for k, x in mode.items()}
+                    got = paged_decode_attention_op(
+                        *[a.cuda() for a in cpu], window, **dev_kw)
+                    assert torch.equal(got, paged_decode_attention_op(
+                        *[a.cuda() for a in cpu], window, **dev_kw))
+                    for want in (paged_decode_attention_op(*cpu, window,
+                                                           **mode),
+                                 paged_attention_split(*cpu, window, chunk,
+                                                       **mode)):
+                        torch.testing.assert_close(got.cpu().float(),
+                                                   want.float(), rtol=tol,
+                                                   atol=tol)

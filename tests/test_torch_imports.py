@@ -1,8 +1,8 @@
 """Boundary rules of the PyTorch port.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX
-  or anything of the JAX package ``repro`` (an AST scan, so lazy imports
-  inside functions count too).
+* No module of ``src/repro_torch``, not ``chip_smoke.py`` and none of the
+  port's tools imports JAX or anything of the JAX package ``repro`` (an
+  AST scan, so lazy imports inside functions count too).
 * No module of ``src/repro_torch`` calls a library attention or compiler
   (``scaled_dot_product_attention``, cuDNN, ``torch.compile``): its
   kernels are written by hand.  ``chip_smoke.py`` may time one as a
@@ -22,6 +22,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+PORT_TOOLS = [ROOT / "tools" / name for name in (
+    "decode_step_time.py", "kernel_time.py", "profile_torch_serve.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -34,8 +36,9 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+@pytest.mark.parametrize("path", PORT_FILES + PORT_TOOLS,
+                         ids=[str(p.relative_to(ROOT))
+                              for p in PORT_FILES + PORT_TOOLS])
 def test_port_imports_no_jax(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

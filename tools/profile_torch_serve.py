@@ -28,7 +28,8 @@ sys.path.insert(0, str(ROOT))
 
 # kernel-name fragments of each share the summary reports
 SHARES = {"support-core kernel": ("support_core",),
-          "paged attention kernel": ("paged_attention",),
+          "paged attention kernel (both passes)": ("paged_attention",
+                                                   "paged_combine"),
           "device copies": ("copy", "Copy")}
 
 
