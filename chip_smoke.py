@@ -8,12 +8,15 @@ Phases, each failing loudly (non-zero exit, no result line):
 1.  card     -- the card's name and power limit, torch and CUDA versions;
 2.  build    -- compile the three CUDA kernels from the checkout's sources
                (one ``nvcc`` each, ``sm_90a``, started together), print
-               each build time and the attention kernels' ``-Xptxas -v``
-               lines (registers, shared memory, spills); the tensor-core
-               flash kernel must not spill;
+               each build time and every kernel's ``-Xptxas -v`` lines
+               (registers, shared memory, spills); the support-core kernel
+               and the tensor-core flash kernel must not spill;
 3.  kernels  -- each kernel against its plain PyTorch version on the card:
                the support-core burst bit for bit (directed cases, the
-               sweep shapes, a large shape, a 50-burst trace); paged decode
+               sweep shapes, a large shape, a 50-burst trace, and the
+               decode, release and all-NOP bursts of card-sized gemma3-1b
+               pools of 35840 and 65536 pages, gated and ungated, each
+               with its path and cluster size); paged decode
                attention and flash prefill attention over the JAX sweeps in
                f32 and bf16, the serving shapes of both configurations, the
                NO_BLOCK slot, shared vs private tables (bit-identical), the
@@ -22,10 +25,13 @@ Phases, each failing loudly (non-zero exit, no result line):
                hd and G swept, queries scaled by 8 so scores reach +-30);
                paged lanes spanning no, one and every split of the context,
                against both plain versions; two identical launches of each
-               kernel bit-identical; then times per launch at the serving
-               shapes beside the plain version, the bound and, for flash,
+               kernel bit-identical (the support core on its cluster path
+               too); then times per launch at the serving shapes beside the
+               plain version, the bound and, for flash,
                ``scaled_dot_product_attention`` (causal, or with a boolean
-               band mask for the window; timed here only);
+               band mask for the window; timed here only); the
+               support-core burst also at the large shape and the pool's
+               three bursts, beside the launch floor (an empty kernel);
 4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
                the port's scheduler and engine: every support-core burst,
@@ -77,6 +83,11 @@ WORKLOADS = {
 # the reduced configs of phase 5 (gemma3: one local and one global layer)
 SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
 SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128)}
+# a card-sized page pool: make_paged_config(gemma3-1b, seq_len=2048,
+# lanes=256, page_size=16) gives 35840 pages (14.2 GiB of bf16 KV) and 256
+# scratch slots; warm bursts put POOL_WARM pages in use across its lanes
+POOL_LANES = 256
+POOL_WARM = 26000
 # the JAX kernel tests' sweeps (tests/test_kernels.py)
 PAGED_SWEEP = [(3, 2, 4, 32, 8, 5), (2, 1, 8, 64, 16, 4), (2, 4, 1, 128, 8, 6),
                (1, 2, 2, 16, 4, 3)]
@@ -95,6 +106,8 @@ def fail(msg: str) -> None:
 # --------------------------------------------------------------------------
 
 def random_queue(rng, Q, C, N, R, dev, ops=None, lanes=8):
+    """A random burst: ``lanes`` is a lane count, or the lane ids to draw
+    from."""
     from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC,
                                           OP_MALLOC_RUN, OP_NOP, OP_REFILL,
                                           make_queue)
@@ -104,8 +117,9 @@ def random_queue(rng, Q, C, N, R, dev, ops=None, lanes=8):
                     np.where(rng.rand(Q) < 0.5, FREE_ALL,
                              rng.randint(0, N + 2, Q)),
                     rng.randint(0, R + 2, Q))          # incl. 0 and overwide
-    return make_queue(ops, rng.randint(0, lanes, Q), rng.randint(-1, C + 1, Q),
-                      args, device=dev)
+    ids = np.arange(lanes) if np.isscalar(lanes) else np.asarray(lanes)
+    return make_queue(ops, ids[rng.randint(0, len(ids), Q)],
+                      rng.randint(-1, C + 1, Q), args, device=dev)
 
 
 class Parity:
@@ -118,9 +132,11 @@ class Parity:
 
     def step(self, state, queue, R, gated=False):
         from repro_torch.core.hmq import schedule
+        return self.step_scheduled(state, schedule(queue)[0], R, gated)
+
+    def step_scheduled(self, state, sched, R, gated=False):
         from repro_torch.core.support_core import _step_scheduled_torch
         from repro_torch.kernels.support_core.ops import support_core_burst
-        sched, _ = schedule(queue)
         want = _step_scheduled_torch(state, sched, R, gated=gated)
         got = support_core_burst(state, sched, R, gated=gated)
         pairs = list(zip(want[0], got[0])) + [(want[1], got[1]),
@@ -131,10 +147,69 @@ class Parity:
             self.max_abs_err = max(self.max_abs_err, err)
             if not torch.equal(a, b):
                 fail(f"kernel != plain on {name} (burst {self.bursts}, "
-                     f"Q={queue.capacity} C={state.num_classes} "
+                     f"Q={sched.capacity} C={state.num_classes} "
                      f"N={state.max_capacity} R={R} gated={gated})")
         self.bursts += 1
         return got[0]
+
+
+def card_pool(dev, pages: int, warm: int = POOL_WARM, seed: int = 11):
+    """A pool of classes ``[pages, POOL_LANES]`` with about ``warm`` pages in
+    use across lanes 0-255, from seeded warm bursts of up to 512 mallocs of
+    1-8 pages (R = 8), as an admitted batch of ~1000-token prompts leaves
+    it.  The plain version runs them, so the state does not depend on the
+    kernel under test."""
+    from repro_torch.core.freelist import init_freelist
+    from repro_torch.core.hmq import schedule
+    from repro_torch.core.packets import OP_MALLOC, make_queue
+    from repro_torch.core.support_core import _step_scheduled_torch
+    rng = np.random.RandomState(seed)
+    wants = rng.randint(1, 9, 2 * warm // 4)
+    wants = wants[:int(np.searchsorted(np.cumsum(wants), warm)) + 1]
+    state = init_freelist([pages, POOL_LANES], device=dev)
+    for lo in range(0, len(wants), 512):
+        w = wants[lo:lo + 512]
+        q = make_queue(np.full(len(w), OP_MALLOC),
+                       (np.arange(len(w)) + lo) % POOL_LANES,
+                       np.zeros(len(w), int), w, capacity=512, device=dev)
+        state = _step_scheduled_torch(state, schedule(q)[0], 8)[0]
+    return state
+
+
+def pool_bursts(dev, state, seed: int = 12) -> dict:
+    """The pool's three bursts, scheduled, as ``(sched, R)``: the live
+    decode burst (each lane's MALLOC(1) slot live for ~1/16 of the lanes,
+    its REFILL(8) slot for ~1/8, the rest NOP: Q = 512), the release burst
+    (32 FREE_ALLs of distinct lanes and 32 single frees of owned pages: Q =
+    64) and the all-NOP decode burst."""
+    from repro_torch.core.hmq import schedule
+    from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC,
+                                          OP_NOP, OP_REFILL, make_queue)
+    rng = np.random.RandomState(seed)
+    lanes = np.repeat(np.arange(POOL_LANES), 2)
+    slot = np.tile([OP_MALLOC, OP_REFILL], POOL_LANES)
+    live = rng.rand(2 * POOL_LANES) < np.tile([1 / 16, 1 / 8], POOL_LANES)
+    ops = np.where(live, slot, OP_NOP)
+    zeros = np.zeros(2 * POOL_LANES, int)
+    decode = make_queue(ops, lanes, zeros, np.where(slot == OP_MALLOC, 1, 8),
+                        device=dev)
+    nop = make_queue(zeros, lanes, zeros, zeros, device=dev)
+    owner = state.owner[0].cpu().numpy()
+    pages = rng.choice(np.flatnonzero(owner >= 0), 32, replace=False)
+    fa_lanes = rng.choice(POOL_LANES, 32, replace=False)
+    release = make_queue(np.full(64, OP_FREE),
+                         np.concatenate([fa_lanes, owner[pages]]),
+                         np.zeros(64, int),
+                         np.concatenate([np.full(32, FREE_ALL), pages]),
+                         device=dev)
+    return {name: (schedule(q)[0], 8) for name, q in
+            (("decode", decode), ("release", release), ("all_nop", nop))}
+
+
+def plan_of(Q: int, C: int, N: int) -> str:
+    from repro_torch.kernels.support_core.ops import card_plan
+    plan = card_plan(Q, C, N)
+    return f"{plan.path} path, cluster {plan.cluster} x {plan.slice} ids"
 
 
 def kernel_parity(dev) -> Parity:
@@ -142,7 +217,6 @@ def kernel_parity(dev) -> Parity:
     from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC,
                                           OP_MALLOC_RUN, OP_NOP, OP_REFILL,
                                           make_queue)
-    from repro_torch.kernels.support_core.ops import KERNEL
     par = Parity()
 
     def trace(caps, steps, R):
@@ -198,8 +272,33 @@ def kernel_parity(dev) -> Parity:
             state = par.step(state, random_queue(rng, Q, C, N, R, dev), R,
                              gated=bool(rng.rand() < 0.5))
             validate_freelist(state)
-        path = "shared" if KERNEL.lib.support_core_in_smem(Q, N) else "global"
-        print(f"  parity Q={Q} C={C} N={N} R={R}: ok ({path}-memory path)")
+        print(f"  parity Q={Q} C={C} N={N} R={R}: ok ({plan_of(Q, C, N)})")
+
+    # lane ids beyond 32 Q: FREE_ALL lanes by binary search, not the bitmap
+    wide = rng.randint(0, 2**30, 8)
+    for Q, C, N, R in ((64, 4, 128, 8), (512, 2, 35840, 8)):
+        state = init_freelist([N] * C, device=dev)
+        for step in range(4):
+            state = par.step(state, random_queue(rng, Q, C, N, R, dev,
+                                                 lanes=wide), R,
+                             gated=step % 2 == 1)
+            validate_freelist(state)
+    print(f"  parity with lane ids up to 2**30: ok")
+
+    # card-sized pools: each burst gated and ungated on the warm state; a
+    # nearly full pool sends the decode burst down the sequential grant
+    # path, and 131072 pages outgrow a cluster (the global path)
+    for pages, warm in ((35840, POOL_WARM), (35840, 35700),
+                        (65536, POOL_WARM), (131072, POOL_WARM)):
+        state = card_pool(dev, pages, warm)
+        for name, (sched, R) in pool_bursts(dev, state).items():
+            for gated in (False, True):
+                par.step_scheduled(state, sched, R, gated=gated)
+        top = int(state.free_top[0])
+        print(f"  parity pool [{pages}, {POOL_LANES}], {warm} pages in use "
+              f"(top {top}): decode, release and all-NOP bursts, gated and "
+              f"ungated, ok (Q=512: {plan_of(512, 2, pages)}; Q=64: "
+              f"{plan_of(64, 2, pages)})")
 
     # 50 bursts at the serving classes (kv_pages 512, scratch 4), state
     # carried, with the admission / decode / release burst widths
@@ -255,25 +354,63 @@ def burst_bound_ms(Q: int, C: int, N: int, R: int) -> tuple[float, str]:
                                                            "operations")
 
 
-def time_burst(dev, Q, C, N, R, caps) -> dict:
+def burst_cases(dev) -> dict:
+    """The support-core bursts that are timed, as ``name: (state, sched, R,
+    gated)``: the serve's shape (Q=8 C=2 N=512 R=7), the large shape
+    (Q=256 C=8 N=65536 R=8), each after three warm bursts, and the three
+    bursts of the card-sized gemma3-1b pool (:func:`card_pool`): live
+    decode and all-NOP gated, as ``decode_append`` commits them, release
+    ungated."""
     from repro_torch.core.freelist import init_freelist
     from repro_torch.core.hmq import schedule
     from repro_torch.core.support_core import _step_scheduled_torch
-    from repro_torch.kernels.support_core.ops import support_core_burst
-    rng = np.random.RandomState(1)
-    state = init_freelist(caps, device=dev)
-    warm, _ = schedule(random_queue(rng, Q, C, N, R, dev))
-    for _ in range(3):
-        state, _, _ = support_core_burst(state, warm, R)
-    sched, _ = schedule(random_queue(rng, Q, C, N, R, dev))
-    ms = device_ms(lambda: support_core_burst(state, sched, R))
-    plain_ms = device_ms(lambda: _step_scheduled_torch(state, sched, R))
+    cases = {}
+    for name, Q, C, N, R, caps in (
+            ("serve", 2 * SERVE_LANES, 2, 512, 7, [512, SERVE_LANES]),
+            ("large", 256, 8, 65536, 8, [65536] * 8)):
+        rng = np.random.RandomState(1)
+        state = init_freelist(caps, device=dev)
+        warm, _ = schedule(random_queue(rng, Q, C, N, R, dev))
+        for _ in range(3):
+            state = _step_scheduled_torch(state, warm, R)[0]
+        sched, _ = schedule(random_queue(rng, Q, C, N, R, dev))
+        cases[name] = (state, sched, R, False)
+    state = card_pool(dev, 35840)
+    for name, (sched, R) in pool_bursts(dev, state).items():
+        cases[f"pool_{name}"] = (state, sched, R, name != "release")
+    return cases
+
+
+def time_burst(state, sched, R, gated) -> dict:
+    from repro_torch.core.support_core import _step_scheduled_torch
+    from repro_torch.kernels.support_core.ops import card_plan, \
+        support_core_burst
+    (C, N), Q = state.free_stack.shape, sched.capacity
+    plan = card_plan(Q, C, N)
+    ms = device_ms(lambda: support_core_burst(state, sched, R, gated=gated))
+    plain_ms = device_ms(lambda: _step_scheduled_torch(state, sched, R,
+                                                       gated=gated),
+                         n=100 if Q <= 64 else 10)
     bound_ms, bound_by = burst_bound_ms(Q, C, N, R)
-    print(f"  time Q={Q} C={C} N={N} R={R}: kernel {ms * 1e3:.2f} us/launch, "
-          f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
-          f"({bound_by}; far below launch latency)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    print(f"  time Q={Q} C={C} N={N} R={R} gated={gated} ({plan.path} path, "
+          f"cluster {plan.cluster}): kernel {ms * 1e3:.2f} us/launch, plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by})")
+    return dict(Q=Q, C=C, N=N, R=R, gated=gated, path=plan.path,
+                cluster=plan.cluster, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def launch_floor_ms() -> float:
+    """Device time of one empty kernel launch, by :func:`device_ms`: what
+    no burst can go under."""
+    from repro_torch.kernels.support_core.ops import KERNEL
+    lib = KERNEL.lib
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = device_ms(lambda: KERNEL.check(lib.support_core_empty_launch(stream),
+                                        "empty launch"))
+    print(f"  launch floor: {ms * 1e3:.2f} us (one empty kernel)")
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -489,7 +626,13 @@ def determinism(dev) -> None:
     state = init_freelist([512, SERVE_LANES], device=dev)
     sched, _ = schedule(random_queue(rng, 24, 2, 512, 7, dev,
                                      lanes=SERVE_LANES))
-    runs = {"support core": lambda: support_core_burst(state, sched, 7)[0]}
+    def burst(st, sc, R):
+        new, blocks, ok = support_core_burst(st, sc, R)
+        return (*new, blocks, ok)
+    pool = card_pool(dev, 35840)
+    psched, pR = pool_bursts(dev, pool)["decode"]
+    runs = {"support core": lambda: burst(state, sched, 7),
+            "support core (cluster path)": lambda: burst(pool, psched, pR)}
     case = paged_pool_case(rng, dev, torch.bfloat16, 4, 1, 4, 256, 16, 129,
                            2, [1400, 1024, 700, 611], [True] * 4)
     args, kw = paged_args(case, FULL, True)
@@ -501,6 +644,7 @@ def determinism(dev) -> None:
         a, b = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             fail(f"{name} kernel: two identical launches differ")
+    print(f"  support core cluster path: {plan_of(psched.capacity, 2, 35840)}")
     print(f"  determinism: two identical launches bit-identical for "
           f"{', '.join(runs)}")
 
@@ -771,10 +915,14 @@ def kernel_signature(name: str) -> str:
     return head.split("::")[-1] + sep + tail
 
 
+NO_SPILL = ("flash_mma_kernel", "support_core_burst_kernel")
+
+
 def print_ptxas(kernels) -> None:
     """Each kernel entry's registers, static shared memory and spills as
     ``-Xptxas -v`` printed them (demangled by the toolkit's ``cu++filt``
-    when it has one); fails when the tensor-core flash kernel spills."""
+    when it has one); fails when the support-core kernel or the
+    tensor-core flash kernel spills."""
     from repro_torch.kernels._build import _nvcc, ptxas_report
     filt = Path(_nvcc()).parent / "cu++filt"
     spills = []
@@ -793,11 +941,11 @@ def print_ptxas(kernels) -> None:
             print(f"  ptxas {k.name}: {short}: {r['registers']} registers, "
                   f"{r['smem']} bytes static smem, {r['spill_stores']} / "
                   f"{r['spill_loads']} bytes spill stores / loads")
-            if "flash_mma_kernel" in r["name"] and (r["spill_stores"]
-                                                    or r["spill_loads"]):
+            if any(n in r["name"] for n in NO_SPILL) and (
+                    r["spill_stores"] or r["spill_loads"]):
                 spills.append(short)
     if spills:
-        fail(f"tensor-core flash kernel spills: {', '.join(spills)}")
+        fail(f"kernels that must not spill do: {', '.join(spills)}")
 
 
 def main() -> None:
@@ -823,14 +971,13 @@ def main() -> None:
     build_all(kernels)
     for k in kernels:
         print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
-    print_ptxas((PAGED_KERNEL, FLASH_KERNEL))
+    print_ptxas(kernels)
 
     print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
-    t_serve = time_burst(dev, Q=2 * SERVE_LANES, C=2, N=512, R=7,
-                         caps=[512, SERVE_LANES])
-    t_large = time_burst(dev, Q=256, C=8, N=65536, R=8,
-                         caps=[65536] * 8)
+    t_burst = {name: time_burst(*case)
+               for name, case in burst_cases(dev).items()}
+    floor_ms = launch_floor_ms()
     errs = Errors()
     paged_parity(dev, errs)
     paged_split_parity(dev, errs)
@@ -874,10 +1021,13 @@ def main() -> None:
              source="src/repro_torch/kernels/support_core/csrc/support_core.cu",
              replaces="src/repro/kernels/support_core/support_core_kernel.py:205",
              **launches("support_core_burst"), max_abs_err=par.max_abs_err,
-             ms=t_serve["ms"], plain_ms=t_serve["plain_ms"],
-             bound_ms=t_serve["bound_ms"], bound_by=t_serve["bound_by"],
-             library_ms=None,
-             large_shape=dict(Q=256, C=8, N=65536, R=8, **t_large)),
+             parity_bursts=par.bursts,
+             **{k: t_burst["serve"][k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by")},
+             library_ms=None, launch_floor_ms=floor_ms,
+             large_shape=t_burst["large"],
+             pool_shapes={k: v for k, v in t_burst.items()
+                          if k.startswith("pool_")}),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/"
                     "paged_attention.cu",

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Device time of one tree's two attention ops on one NVIDIA card, at the
-serving shapes of ``chip_smoke.py`` phase 3, for comparing two commits in
-one call.
+"""Device time of one tree's three kernels on one NVIDIA card, at the
+shapes of ``chip_smoke.py`` phase 3, for comparing two commits in one
+call.
 
     python3 tools/kernel_time.py TREE LABEL
 
 Imports ``repro_torch`` from ``TREE/src`` (a checkout or a ``git archive``
-of any commit that has the two ops; its kernels are built at first use
-under ``TREE/build/kernels``) and times, in bf16, paged decode attention
-(self mode on one layer of a 26- or 30-layer pool, every lane active) and
+of any commit that has the ops; its kernels are built at first use under
+``TREE/build/kernels``) and times, in bf16, paged decode attention (self
+mode on one layer of a 26- or 30-layer pool, every lane active) and
 causal flash prefill attention at deepseek-7b's shape and at gemma3-1b's
-local (window 512) and global layers.  Each time is the median of CUDA
-event pairs around one op call queued behind a GPU spin
-(``chip_smoke.device_ms``), so it is the device's time, not the host's.
-Prints the card's ``nvidia-smi`` line, one line per shape and one JSON
-line, each prefixed with ``LABEL``.  Run trees in turns (parent, change,
-change, parent).
+local (window 512) and global layers; then the support-core burst at the
+serve's shape (Q=8 C=2 N=512 R=7), the large shape (Q=256 C=8 N=65536
+R=8) and the live decode, release and all-NOP bursts of a card-sized
+gemma3-1b pool (``chip_smoke.burst_cases``), and the host time of one
+call of the burst's wrapper at the serve's shape beside one small
+PyTorch op (no sync).  Each device time is the median of CUDA event pairs
+around one call queued behind a GPU spin (``chip_smoke.device_ms``), so
+it is the device's time, not the host's.  Prints the card's
+``nvidia-smi`` line, one line per shape and one JSON line, each prefixed
+with ``LABEL``.  Run trees in turns (parent, change, change, parent).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +89,31 @@ def main() -> None:
             lambda: flash_attention_op(q, k, v, causal=True, window=window),
             n=30) * 1e3
         print(f"{lab} flash {name}: {us['flash'][name]:.2f} us", flush=True)
+    from repro_torch.kernels.support_core.ops import support_core_burst
+    us["support_core"] = {}
+    cases = cs.burst_cases(dev)
+    for name, (state, sched, R, gated) in cases.items():
+        us["support_core"][name] = cs.device_ms(
+            lambda: support_core_burst(state, sched, R, gated=gated)) * 1e3
+        print(f"{lab} support core {name} (Q={sched.capacity} "
+              f"N={state.free_stack.shape[1]} gated={gated}): "
+              f"{us['support_core'][name]:.2f} us", flush=True)
+    state, sched, R, gated = cases["serve"]
+    one = torch.zeros(8, dtype=torch.int32, device=dev)
+    us["host"] = {}
+    for name, fn in (("support-core wrapper", lambda: support_core_burst(
+                          state, sched, R, gated=gated)),
+                     ("one torch add", lambda: one + 1)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        us["host"][name] = (time.perf_counter() - t0) / 1000 * 1e6
+        torch.cuda.synchronize()
+        print(f"{lab} host time of {name}: {us['host'][name]:.1f} us/call",
+              flush=True)
     print(f"{lab} " + json.dumps(dict(label=lab, card=smi, us=us)))
 
 
