@@ -25,13 +25,14 @@ Phases, each failing loudly (non-zero exit, no result line):
                hd and G swept, queries scaled by 8 so scores reach +-30);
                paged lanes spanning no, one and every split of the context,
                against both plain versions; two identical launches of each
-               kernel bit-identical (the support core on its cluster path
-               too); then times per launch at the serving shapes beside the
-               plain version, the bound and, for flash,
+               kernel bit-identical (the support core on its block and
+               cluster paths); then times per launch at the serving
+               shapes beside the plain version, the bound and, for flash,
                ``scaled_dot_product_attention`` (causal, or with a boolean
                band mask for the window; timed here only); the
-               support-core burst also at the large shape and the pool's
-               three bursts, beside the launch floor (an empty kernel);
+               support-core burst also at the large shape, the pool's
+               three bursts and one burst on the global path (a pool of
+               131072 pages), beside the launch floor (a one-element fill);
 4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
                the port's scheduler and engine: every support-core burst,
@@ -181,7 +182,10 @@ def pool_bursts(dev, state, seed: int = 12) -> dict:
     decode burst (each lane's MALLOC(1) slot live for ~1/16 of the lanes,
     its REFILL(8) slot for ~1/8, the rest NOP: Q = 512), the release burst
     (32 FREE_ALLs of distinct lanes and 32 single frees of owned pages: Q =
-    64) and the all-NOP decode burst."""
+    64) and the all-NOP decode burst.  The live and release mixes are
+    synthetic: their rates are set here, not taken from a serve (with
+    16-token pages and a stash refill of 8, a lane's REFILL is due about
+    once in 128 steps, so a 256-lane step would carry ~2, not ~32)."""
     from repro_torch.core.hmq import schedule
     from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC,
                                           OP_NOP, OP_REFILL, make_queue)
@@ -354,34 +358,45 @@ def burst_bound_ms(Q: int, C: int, N: int, R: int) -> tuple[float, str]:
                                                            "operations")
 
 
-def burst_cases(dev) -> dict:
-    """The support-core bursts that are timed, as ``name: (state, sched, R,
-    gated)``: the serve's shape (Q=8 C=2 N=512 R=7), the large shape
-    (Q=256 C=8 N=65536 R=8), each after three warm bursts, and the three
-    bursts of the card-sized gemma3-1b pool (:func:`card_pool`): live
-    decode and all-NOP gated, as ``decode_append`` commits them, release
-    ungated."""
+def warm_burst(dev, Q, C, N, R, caps) -> tuple:
+    """``(state, sched, R, gated=False)``: a random burst on a state that
+    three random warm bursts (seed 1) have left."""
     from repro_torch.core.freelist import init_freelist
     from repro_torch.core.hmq import schedule
     from repro_torch.core.support_core import _step_scheduled_torch
-    cases = {}
-    for name, Q, C, N, R, caps in (
-            ("serve", 2 * SERVE_LANES, 2, 512, 7, [512, SERVE_LANES]),
-            ("large", 256, 8, 65536, 8, [65536] * 8)):
-        rng = np.random.RandomState(1)
-        state = init_freelist(caps, device=dev)
-        warm, _ = schedule(random_queue(rng, Q, C, N, R, dev))
-        for _ in range(3):
-            state = _step_scheduled_torch(state, warm, R)[0]
-        sched, _ = schedule(random_queue(rng, Q, C, N, R, dev))
-        cases[name] = (state, sched, R, False)
+    rng = np.random.RandomState(1)
+    state = init_freelist(caps, device=dev)
+    warm, _ = schedule(random_queue(rng, Q, C, N, R, dev))
+    for _ in range(3):
+        state = _step_scheduled_torch(state, warm, R)[0]
+    sched, _ = schedule(random_queue(rng, Q, C, N, R, dev))
+    return state, sched, R, False
+
+
+def serve_burst(dev) -> tuple:
+    """The burst at the serve's shape (Q=8 C=2 N=512 R=7)."""
+    return warm_burst(dev, 2 * SERVE_LANES, 2, 512, 7, [512, SERVE_LANES])
+
+
+def burst_cases(dev) -> dict:
+    """The support-core bursts that are timed, as ``name: (state, sched, R,
+    gated)``: the serve's shape, the large shape (Q=256 C=8 N=65536 R=8),
+    the three bursts of the card-sized gemma3-1b pool (:func:`card_pool`;
+    live decode and all-NOP gated, as ``decode_append`` commits them,
+    release ungated) and the release burst of a pool of 131072 pages,
+    which takes the global path."""
+    cases = {"serve": serve_burst(dev),
+             "large": warm_burst(dev, 256, 8, 65536, 8, [65536] * 8)}
     state = card_pool(dev, 35840)
     for name, (sched, R) in pool_bursts(dev, state).items():
         cases[f"pool_{name}"] = (state, sched, R, name != "release")
+    state = card_pool(dev, 131072)
+    cases["pool_131072_release"] = (state, *pool_bursts(dev, state)["release"],
+                                    False)
     return cases
 
 
-def time_burst(state, sched, R, gated) -> dict:
+def time_burst(name, state, sched, R, gated) -> dict:
     from repro_torch.core.support_core import _step_scheduled_torch
     from repro_torch.kernels.support_core.ops import card_plan, \
         support_core_burst
@@ -392,8 +407,10 @@ def time_burst(state, sched, R, gated) -> dict:
                                                        gated=gated),
                          n=100 if Q <= 64 else 10)
     bound_ms, bound_by = burst_bound_ms(Q, C, N, R)
-    print(f"  time Q={Q} C={C} N={N} R={R} gated={gated} ({plan.path} path, "
-          f"cluster {plan.cluster}): kernel {ms * 1e3:.2f} us/launch, plain "
+    mix = "synthetic mix, " if name.endswith(("decode", "release")) else ""
+    print(f"  time {name} Q={Q} C={C} N={N} R={R} gated={gated} ({mix}"
+          f"{plan.path} path, cluster {plan.cluster}): kernel "
+          f"{ms * 1e3:.2f} us/launch, plain "
           f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
           f"({bound_by})")
     return dict(Q=Q, C=C, N=N, R=R, gated=gated, path=plan.path,
@@ -402,14 +419,12 @@ def time_burst(state, sched, R, gated) -> dict:
 
 
 def launch_floor_ms() -> float:
-    """Device time of one empty kernel launch, by :func:`device_ms`: what
-    no burst can go under."""
-    from repro_torch.kernels.support_core.ops import KERNEL
-    lib = KERNEL.lib
-    stream = torch.cuda.current_stream().cuda_stream
-    ms = device_ms(lambda: KERNEL.check(lib.support_core_empty_launch(stream),
-                                        "empty launch"))
-    print(f"  launch floor: {ms * 1e3:.2f} us (one empty kernel)")
+    """Device time of PyTorch's fill of one int32 word, by
+    :func:`device_ms`: about what a launch costs by that clock, which no
+    burst can go under."""
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = device_ms(one.zero_)
+    print(f"  launch floor: {ms * 1e3:.2f} us (a one-element fill)")
     return ms
 
 
@@ -631,7 +646,7 @@ def determinism(dev) -> None:
         return (*new, blocks, ok)
     pool = card_pool(dev, 35840)
     psched, pR = pool_bursts(dev, pool)["decode"]
-    runs = {"support core": lambda: burst(state, sched, 7),
+    runs = {"support core (block path)": lambda: burst(state, sched, 7),
             "support core (cluster path)": lambda: burst(pool, psched, pR)}
     case = paged_pool_case(rng, dev, torch.bfloat16, 4, 1, 4, 256, 16, 129,
                            2, [1400, 1024, 700, 611], [True] * 4)
@@ -644,7 +659,8 @@ def determinism(dev) -> None:
         a, b = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             fail(f"{name} kernel: two identical launches differ")
-    print(f"  support core cluster path: {plan_of(psched.capacity, 2, 35840)}")
+    print(f"  support core: {plan_of(24, 2, 512)}; "
+          f"{plan_of(psched.capacity, 2, 35840)}")
     print(f"  determinism: two identical launches bit-identical for "
           f"{', '.join(runs)}")
 
@@ -975,7 +991,7 @@ def main() -> None:
 
     print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
-    t_burst = {name: time_burst(*case)
+    t_burst = {name: time_burst(name, *case)
                for name, case in burst_cases(dev).items()}
     floor_ms = launch_floor_ms()
     errs = Errors()

@@ -845,8 +845,6 @@ __global__ void __launch_bounds__(THREADS, 1) support_core_burst_kernel(
   if constexpr (MODE != PATH_BLOCK) cluster_wait();
 }
 
-__global__ void empty_kernel() {}
-
 int max_smem_optin() {
   static int bytes = -1;
   if (bytes < 0) {
@@ -972,12 +970,6 @@ int support_core_burst_launch(
                                args);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One empty kernel on `stream`: the launch floor a burst is measured beside.
-int support_core_empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,24 +88,23 @@ def _cut(N: int, k: int, tile: int) -> tuple[int, int]:
     return -(-N // S), S
 
 
-def plan_burst(Q: int, C: int, N: int, smem_optin: int = H100_SMEM_OPTIN,
-               max_cluster: int = MAX_CLUSTER) -> BurstPlan:
+def plan_burst(Q: int, C: int, N: int,
+               smem_optin: int = H100_SMEM_OPTIN) -> BurstPlan:
     """The path of a burst of ``Q`` requests over ``C`` classes of ``N``
     ids, from the shapes alone.
 
     * ``block``: the rows fit one block's shared memory (16 bytes per id
       beside the staged queue);
-    * ``cluster``: they fit ``max_cluster`` blocks; the cluster takes
+    * ``cluster``: they fit :data:`MAX_CLUSTER` blocks; the cluster takes
       enough blocks for slices of about :data:`SLICE_IDS` ids (up to
-      ``max_cluster``), more if the rows need them;
-    * ``global``: beyond that, ``max_cluster`` blocks work on the rows in
-      device memory.
+      :data:`MAX_CLUSTER`), more if the rows need them;
+    * ``global``: beyond that, :data:`MAX_CLUSTER` blocks work on the rows
+      in device memory.
 
     Slices are contiguous, in rank order, whole sweep tiles, and none is
     empty.  The state is never read: it lives on the device."""
-    if min(Q, C, N) < 1 or max_cluster < 1:
-        raise ValueError(f"need Q, C, N, max_cluster >= 1, got Q={Q} C={C} "
-                         f"N={N} max_cluster={max_cluster}")
+    if min(Q, C, N) < 1:
+        raise ValueError(f"need Q, C, N >= 1, got Q={Q} C={C} N={N}")
     head = 4 * head_words(Q)
     if head + STATIC_SMEM > smem_optin:
         raise ValueError(f"a queue of Q={Q} requests does not fit a block's "
@@ -114,11 +113,11 @@ def plan_burst(Q: int, C: int, N: int, smem_optin: int = H100_SMEM_OPTIN,
     if N <= cap:
         k, S = _cut(N, 1, SMEM_TILE)
         return BurstPlan("block", k, S, head + 16 * S)
-    if N <= max_cluster * cap:
-        k, S = _cut(N, max(-(-N // cap), min(max_cluster, -(-N // SLICE_IDS))),
+    if N <= MAX_CLUSTER * cap:
+        k, S = _cut(N, max(-(-N // cap), min(MAX_CLUSTER, -(-N // SLICE_IDS))),
                     SMEM_TILE)
         return BurstPlan("cluster", k, S, head + 16 * S)
-    k, S = _cut(N, max_cluster, GLOBAL_TILE)
+    k, S = _cut(N, MAX_CLUSTER, GLOBAL_TILE)
     return BurstPlan("global", k, S, head)
 
 
@@ -130,8 +129,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.support_core_burst_launch.argtypes = (
         [ctypes.c_void_p] * 25 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.support_core_burst_launch.restype = ctypes.c_int
-    lib.support_core_empty_launch.argtypes = [ctypes.c_void_p]
-    lib.support_core_empty_launch.restype = ctypes.c_int
 
 
 KERNEL = Kernel("support_core",
@@ -198,25 +195,19 @@ def support_core_burst(
     for name in RequestQueue._fields:
         _check(f"sched.{name}", getattr(sched, name), (Q,), dev)
     plan = card_plan(Q, C, N)
-    # every output (and the global path's count rows) in one allocation,
-    # the [C, N] rows first so that they keep 16-byte alignment
-    scratch = C * N if plan.path == "global" else 0
-    sizes = [C * N] * 3 + [scratch] + [C] * 6 + [Q * R, Q]
-    parts = torch.empty(sum(sizes), dtype=torch.int32, device=dev).split(sizes)
-    names = _ROW_FIELDS + ("scratch",) + tuple(
-        n for n in _STATE_FIELDS if n not in _ROW_FIELDS)
-    out = {n: (t.view(C, N) if n in _ROW_FIELDS else t)
-           for n, t in zip(names, parts)}
-    blocks, ok = parts[-2].view(Q, R), parts[-1]
+    out = {n: torch.empty_like(getattr(state, n)) for n in _STATE_FIELDS}
+    blocks = torch.empty((Q, R), dtype=torch.int32, device=dev)
+    ok = torch.empty((Q,), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((C, N), dtype=torch.int32, device=dev)
+               if plan.path == "global" else None)
     err = KERNEL.lib.support_core_burst_launch(
         *(t.data_ptr() for t in sched),
         *(getattr(state, n).data_ptr() for n in _STATE_FIELDS),
         *(out[n].data_ptr() for n in _STATE_FIELDS),
         blocks.data_ptr(), ok.data_ptr(),
-        out["scratch"].data_ptr() if scratch else None,
+        scratch.data_ptr() if scratch is not None else None,
         Q, C, N, R, int(gated), PATHS.index(plan.path), plan.cluster,
         plan.slice, torch.cuda.current_stream(dev).cuda_stream)
     KERNEL.check(err, f"Q={Q} C={C} N={N} R={R} {plan}")
     KERNEL.launches += 1
-    del out["scratch"]
     return state._replace(**out), blocks, ok

@@ -3,7 +3,7 @@
 shapes of ``chip_smoke.py`` phase 3, for comparing two commits in one
 call.
 
-    python3 tools/kernel_time.py TREE LABEL
+    python3 tools/kernel_time.py TREE LABEL [--host]
 
 Imports ``repro_torch`` from ``TREE/src`` (a checkout or a ``git archive``
 of any commit that has the ops; its kernels are built at first use under
@@ -12,19 +12,23 @@ mode on one layer of a 26- or 30-layer pool, every lane active) and
 causal flash prefill attention at deepseek-7b's shape and at gemma3-1b's
 local (window 512) and global layers; then the support-core burst at the
 serve's shape (Q=8 C=2 N=512 R=7), the large shape (Q=256 C=8 N=65536
-R=8) and the live decode, release and all-NOP bursts of a card-sized
-gemma3-1b pool (``chip_smoke.burst_cases``), and the host time of one
-call of the burst's wrapper at the serve's shape beside one small
-PyTorch op (no sync).  Each device time is the median of CUDA event pairs
-around one call queued behind a GPU spin (``chip_smoke.device_ms``), so
-it is the device's time, not the host's.  Prints the card's
-``nvidia-smi`` line, one line per shape and one JSON line, each prefixed
-with ``LABEL``.  Run trees in turns (parent, change, change, parent).
+R=8), the live decode, release and all-NOP bursts of a card-sized
+gemma3-1b pool (synthetic mixes) and a release burst on the global path
+(``chip_smoke.burst_cases``); last, the host time of one call of the
+burst's wrapper at the serve's shape beside one small PyTorch op (no
+sync; the median of 10 loops of 200 calls).  ``--host`` times only that,
+so that many short runs can alternate trees.  Each device time is the
+median of CUDA event pairs around one call queued behind a GPU spin
+(``chip_smoke.device_ms``), so it is the device's time, not the host's.
+Prints the card's ``nvidia-smi`` line, one line per shape and one JSON
+line, each prefixed with ``LABEL``.  Run trees in turns (parent, change,
+change, parent).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -54,14 +58,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("tree")
     ap.add_argument("label")
+    ap.add_argument("--host", action="store_true",
+                    help="time only the burst wrapper's host cost")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_time: needs a CUDA card")
     src = Path(args.tree).resolve() / "src"
     sys.path.insert(0, str(src))
-    from repro_torch.kernels.flash_attention.ops import flash_attention_op
-    from repro_torch.kernels.paged_attention.ops import \
-        paged_decode_attention_op as paged_op
     import repro_torch
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise SystemExit(f"kernel_time: imported {repro_torch.__file__}, "
@@ -72,6 +75,36 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"{lab} card: {smi}", flush=True)
     dev = torch.device("cuda")
+    us = {} if args.host else device_times(lab, dev)
+    from repro_torch.kernels.support_core.ops import support_core_burst
+    state, sched, R, gated = cs.serve_burst(dev)
+    one = torch.zeros(8, dtype=torch.int32, device=dev)
+    us["host"] = {}
+    for name, fn in (("support-core wrapper", lambda: support_core_burst(
+                          state, sched, R, gated=gated)),
+                     ("one torch add", lambda: one + 1)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            loops.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        us["host"][name] = statistics.median(loops)
+        print(f"{lab} host time of {name}: {us['host'][name]:.1f} us/call",
+              flush=True)
+    print(f"{lab} " + json.dumps(dict(label=lab, card=smi, us=us)))
+
+
+def device_times(lab: str, dev) -> dict:
+    """Device µs of each kernel at each shape, printed as they come."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as paged_op
+    from repro_torch.kernels.support_core.ops import support_core_burst
     us: dict = {"paged": {}, "flash": {}}
     for name, (B, KV, G, hd, ps, P, L, seq, window) in PAGED.items():
         case = cs.paged_pool_case(np.random.RandomState(2), dev,
@@ -89,32 +122,14 @@ def main() -> None:
             lambda: flash_attention_op(q, k, v, causal=True, window=window),
             n=30) * 1e3
         print(f"{lab} flash {name}: {us['flash'][name]:.2f} us", flush=True)
-    from repro_torch.kernels.support_core.ops import support_core_burst
     us["support_core"] = {}
-    cases = cs.burst_cases(dev)
-    for name, (state, sched, R, gated) in cases.items():
+    for name, (state, sched, R, gated) in cs.burst_cases(dev).items():
         us["support_core"][name] = cs.device_ms(
             lambda: support_core_burst(state, sched, R, gated=gated)) * 1e3
         print(f"{lab} support core {name} (Q={sched.capacity} "
               f"N={state.free_stack.shape[1]} gated={gated}): "
               f"{us['support_core'][name]:.2f} us", flush=True)
-    state, sched, R, gated = cases["serve"]
-    one = torch.zeros(8, dtype=torch.int32, device=dev)
-    us["host"] = {}
-    for name, fn in (("support-core wrapper", lambda: support_core_burst(
-                          state, sched, R, gated=gated)),
-                     ("one torch add", lambda: one + 1)):
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(1000):
-            fn()
-        us["host"][name] = (time.perf_counter() - t0) / 1000 * 1e6
-        torch.cuda.synchronize()
-        print(f"{lab} host time of {name}: {us['host'][name]:.1f} us/call",
-              flush=True)
-    print(f"{lab} " + json.dumps(dict(label=lab, card=smi, us=us)))
+    return us
 
 
 if __name__ == "__main__":
