@@ -33,6 +33,12 @@ Phases, each failing loudly (non-zero exit, no result line):
                support-core burst also at the large shape, the pool's
                three bursts and one burst on the global path (a pool of
                131072 pages), beside the launch floor (a one-element fill);
+               the multi-engine bursts (a merged window burst over four
+               classes, a FREE_ALL over aliased pages, the in-step R = 1
+               emergency burst) bit for bit; flash prefill over a cached
+               prefix (query offsets 8-1200) in f32 and bf16, offset 0
+               bit-identical to the call without one, and one offset
+               shape per architecture timed;
 4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
                the port's scheduler and engine: every support-core burst,
@@ -43,10 +49,26 @@ Phases, each failing loudly (non-zero exit, no result line):
 4b. serve    -- gemma3-1b at its published widths (26 layers, windows of
                512 on five layers in six, GQA 4:1) the same way, with
                prompts of 600-1500 tokens so the window binds;
+4c. multi    -- deepseek-7b at full width (phase 4's weights) as two engine
+               shards of four lanes on one support core, burst windows of
+               4 steps, preemption on, per-shard prefix caches in alias
+               mode: 16 requests on two shared 64-token prefixes, each
+               routed to the shard that caches its prefix; every shard
+               must hit, save prefill tokens and alias pages, I1–I6 must
+               hold after every window, every burst, decode attention and
+               prefill attention must be a kernel launch, and each shard's
+               last occupancy must be its cache's residue; prints the
+               window commits, the cross-engine burst occupancy, decode
+               tokens/s, the median prefill pass with and without a hit,
+               and how many tokens differ from the cache-off run (printed,
+               not gated: bf16 products of other shapes round otherwise);
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
                through the port on ``cuda`` and on ``cpu``, for both
                architectures: allocator state and served tokens must be
-               identical;
+               identical; then two shards with the cache on (alias mode
+               for deepseek-7b, copy for gemma3-1b) on both devices:
+               identical tokens and shared allocator state, and tokens
+               equal to the cache-off run's;
 6.  result   -- one JSON line describing the kernels, then the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +103,10 @@ WORKLOADS = {
     "gemma3-1b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
                       new_tokens=32, prompt_lens=(600, 1500)),
 }
+# phase 4c and the multi-engine runs of phase 5: two shards, shared-prefix
+# traffic (two 64-token prefixes, tails of 8-40 tokens)
+MULTI = dict(engines=2, quantum=4, seq=256, page=8, max_prompt=128,
+             prefix=64, requests=16, small_requests=12, new_tokens=16)
 # the reduced configs of phase 5 (gemma3: one local and one global layer)
 SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
 SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128)}
@@ -317,6 +343,92 @@ def kernel_parity(dev) -> Parity:
     print(f"  parity: {par.bursts} bursts bit-identical, "
           f"max_abs_err={par.max_abs_err}")
     return par
+
+
+def plain_commit(state, burst, R):
+    """Commit a staged burst through the plain version (no kernel)."""
+    from repro_torch.core.hmq import schedule
+    from repro_torch.core.support_core import _step_scheduled_torch
+    return _step_scheduled_torch(state, schedule(burst.build_queue())[0],
+                                 R)[0]
+
+
+def multi_engine_parity(dev, par: Parity) -> None:
+    """The bursts that a serve of two engine shards adds, at the card
+    phase's shape (deepseek-7b's pool: 512 pages and 4 scratch slots a
+    shard, C = 4, stash refill R = 7), kernel against plain bit for bit:
+    the merged window burst (refills of both shards, FREE_ALLs of the same
+    lane ids in both shards' classes, owner-agnostic frees of cache-owned
+    pages), a FREE_ALL over a class holding aliased pages with refcounts 2
+    and 3 beside single frees of one reference each, and the in-step R = 1
+    emergency burst (gated; live and all-NOP)."""
+    from repro_torch.alloc.service import AllocService
+    from repro_torch.configs import get_config
+    from repro_torch.core import paged_kv as pkv
+    from repro_torch.core.freelist import validate_freelist
+    from repro_torch.core.hmq import schedule
+    from repro_torch.models import make_paged_config
+    cfg, wl = get_config("deepseek-7b"), WORKLOADS["deepseek-7b"]
+    kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
+                              page_size=wl["page"], dtype=torch.bfloat16)
+    R = kvcfg.stash_refill
+    svc = AllocService(device=dev)
+    ts = [pkv.register_paged_tenants(svc, kvcfg, f"e{i}") for i in range(2)]
+    lanes = torch.arange(SERVE_LANES, dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(13)
+    state = svc.init_state()
+    # admission of four lanes on each shard, as admit_prefill_many stages it
+    for t in ts:
+        b = svc.new_burst()
+        b.malloc(t.kv, lanes, torch.as_tensor(rng.randint(4, 15, SERVE_LANES),
+                                              dtype=torch.int32, device=dev))
+        b.malloc(t.scratch, lanes, 1)
+        b.refill(t.kv, lanes, R)
+        state = plain_commit(state, b, max(14, R))
+    # lane 0 of shard 0 demoted its first 6 pages into the cache; lanes 1-3
+    # alias pages 0-1 (refcount 3) and 2-3 (refcount 2)
+    owner = state.owner[ts[0].kv.size_class].cpu().numpy()
+    cached = np.flatnonzero(owner == 0)[:6]
+    state = svc.retag_blocks(state, ts[0].kv, cached, pkv.CACHE_OWNER)
+    state = svc.bump_refcounts(state, ts[0].kv,
+                               np.concatenate([cached[:2]] * 2
+                                              + [cached[2:4]]))
+    validate_freelist(state)
+    n0, widths = par.bursts, []
+
+    def run(burst, R, gated):
+        sched = schedule(burst.build_queue())[0]
+        widths.append(sched.capacity)
+        return par.step_scheduled(state, sched, R, gated=gated)
+
+    b = svc.new_burst()
+    for t, below in zip(ts, ([True, False, True, True],
+                             [False, True, True, False])):
+        b.refill(t.kv, lanes, R, where=torch.tensor(below, device=dev))
+    both = torch.tensor([True, True, False, False], device=dev)
+    for t in ts:
+        pkv.stage_release_ops(t, b, lanes, both)
+    pkv.stage_single_frees(ts[0], b, cached[4:6])        # evicted victims
+    for gated in (True, False):
+        validate_freelist(run(b, R, gated))
+    b = svc.new_burst()
+    pkv.stage_release_ops(ts[0], b, lanes,
+                          torch.ones(SERVE_LANES, dtype=torch.bool,
+                                     device=dev))
+    pkv.stage_single_frees(ts[0], b, cached[:4])         # one reference each
+    after = run(b, 1, False)
+    refc = after.refcount[ts[0].kv.size_class, cached[:4]].tolist()
+    if refc != [2, 2, 1, 1]:
+        fail(f"aliased pages' refcounts after the burst are {refc}, "
+             f"expected [2, 2, 1, 1]")
+    for where in ([True, False, True, False], [False] * SERVE_LANES):
+        b = svc.new_burst()
+        b.malloc(ts[1].kv, lanes, 1, where=torch.tensor(where, device=dev))
+        validate_freelist(run(b, 1, True))
+    print(f"  multi-engine bursts: {par.bursts - n0} bit-identical (merged "
+          f"window C={state.num_classes} Q={widths[0]} R={R}, aliased "
+          f"FREE_ALL Q={widths[2]}, emergency Q={widths[3]} R=1; "
+          f"{plan_of(widths[0], state.num_classes, 512)})")
 
 
 def device_ms(fn, n: int = 100) -> float:
@@ -594,6 +706,46 @@ def flash_edge_parity(dev, errs: Errors) -> None:
           f"max_abs_err={errs.max['flash']:.3e}")
 
 
+def flash_offset_parity(dev, errs: Errors) -> None:
+    """Flash prefill over a cached prefix: query offsets 8, 24, 64, 72 and
+    1200 (none a multiple of a query tile), windows none and 512, hd 128
+    and 256 with G 1 and 4, ragged Tq, in f32 and bf16, against the plain
+    version; offset 0 bit-identical to the call without one; two launches
+    bit-identical."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.RandomState(7)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for P in (0, 8, 24, 64, 72, 1200):
+            for Tq in (37, 100):
+                for window in (FULL, 512):
+                    for hd, G in ((128, 1), (256, 4)):
+                        q = rand(rng, (2, Tq, 2 * G, hd), dt, dev)
+                        k = rand(rng, (2, P + Tq, 2, hd), dt, dev)
+                        v = rand(rng, (2, P + Tq, 2, hd), dt, dev)
+                        got = flash_attention_op(q, k, v, window=window,
+                                                 q_offset=P)
+                        again = flash_attention_op(q, k, v, window=window,
+                                                   q_offset=P)
+                        if not torch.equal(got, again):
+                            fail(f"flash kernel: two launches with offset "
+                                 f"{P} differ ({dt})")
+                        if P == 0 and not torch.equal(
+                                got, flash_attention_op(q, k, v,
+                                                        window=window)):
+                            fail(f"flash kernel: offset 0 differs from the "
+                                 f"call without one ({dt})")
+                        errs.check("flash", f"offset P={P} Tq={Tq} "
+                                   f"w={window} hd={hd} G={G} {dt}", got,
+                                   flash_attention_ref(q, k, v, window=window,
+                                                       q_offset=P), dt)
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"  flash attention: {n} offset cases within tolerance, offset 0 "
+          f"bit-identical to no offset, max_abs_err={errs.max['flash']:.3e}")
+
+
 def paged_split_parity(dev, errs: Errors) -> None:
     """Lanes whose live range spans no split (inactive), one split,
     exactly one chunk, and every split, at the serving layouts, in both
@@ -692,39 +844,46 @@ def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
                 library_ms=None, shape=shape)
 
 
-def time_flash(dev, B, T, H, KV, hd, window) -> dict:
-    """Causal bf16 prefill attention at a serving shape; the library
-    yardstick is ``scaled_dot_product_attention`` (``is_causal``, or a
-    boolean band mask for a window), timed here and called nowhere in the
-    port."""
+def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
+    """Causal bf16 prefill attention at a serving shape: T queries at
+    positions ``[P, P + T)`` over ``P + T`` keys (``P`` > 0: the suffix of
+    a prefix-cache hit).  The library yardstick is
+    ``scaled_dot_product_attention`` (``is_causal`` when nothing is
+    masked but the causal triangle, else a boolean mask), timed here and
+    called nowhere in the port."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.RandomState(3)
+    Tk = P + T
     q = rand(rng, (B, T, H, hd), torch.bfloat16, dev)
-    k = rand(rng, (B, T, KV, hd), torch.bfloat16, dev)
-    v = rand(rng, (B, T, KV, hd), torch.bfloat16, dev)
+    k = rand(rng, (B, Tk, KV, hd), torch.bfloat16, dev)
+    v = rand(rng, (B, Tk, KV, hd), torch.bfloat16, dev)
     ms = device_ms(lambda: flash_attention_op(q, k, v, causal=True,
-                                              window=window), n=30)
-    plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                     window=window), n=10)
+                                              window=window, q_offset=P),
+                   n=30)
+    plain_ms = device_ms(lambda: flash_attention_ref(
+        q, k, v, causal=True, window=window, q_offset=P), n=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window >= T:
+    if window >= Tk and P == 0:
         library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True), n=30)
     else:
-        pos = torch.arange(T, device=dev)
-        band = (pos[None, :] <= pos[:, None]) \
-            & (pos[None, :] > pos[:, None] - window)
+        qpos = P + torch.arange(T, device=dev)
+        kpos = torch.arange(Tk, device=dev)
+        band = (kpos[None, :] <= qpos[:, None]) \
+            & (kpos[None, :] > qpos[:, None] - window)
         library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=band,
                                             enable_gqa=True), n=30)
-    pairs = sum(min(i + 1, window) for i in range(T))
+    pairs = sum(min(P + i + 1, window) for i in range(T))
     ops = 4 * hd * pairs * B * H
-    nbytes = 2 * (2 * B * T * H * hd + 2 * B * T * KV * hd)
+    nbytes = 2 * (2 * B * T * H * hd + 2 * B * Tk * KV * hd)
     t_ops, t_bytes = ops / TENSOR_BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     shape = dict(B=B, T=T, H=H, KV=KV, hd=hd, window=window, pairs=pairs)
+    if P:
+        shape["q_offset"] = P
     print(f"  time flash {shape}: kernel {ms * 1e3:.2f} us/launch, plain "
           f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.2f} us, bound "
           f"{bound * 1e3:.2f} us ({by})")
@@ -749,18 +908,22 @@ def make_requests(cfg, wl, prompt_lens):
                     .astype(np.int32)) for i, n in enumerate(lens)]
 
 
-def time_prefill_passes(eng, times_us: list) -> None:
+def time_prefill_passes(eng, times_us: list, hit_us: list | None = None
+                        ) -> None:
     """Wrap the engine's prefill so that each pass's wall time, from a
     synchronised start to ``torch.cuda.synchronize()``, lands in
-    ``times_us``."""
+    ``times_us`` -- or in ``hit_us``, when given, for a pass over a cached
+    prefix."""
     inner = eng._prefill
 
-    def timed(*args, **kwargs):
+    def timed(params, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = inner(*args, **kwargs)
+        res = inner(params, batch)
         torch.cuda.synchronize()
-        times_us.append((time.perf_counter() - t0) * 1e6)
+        hit = hit_us is not None and "prefix_k" in batch
+        (hit_us if hit else times_us).append((time.perf_counter() - t0)
+                                             * 1e6)
         return res
     eng._prefill = timed
 
@@ -795,15 +958,12 @@ def check_served(eng, sched, reqs) -> None:
         fail(f"{eng.live_pages} KV pages still live after the last release")
 
 
-def serve_full_width(dev, arch: str) -> dict:
-    """One configuration at its published widths; returns each kernel's
-    launches in that run, set to 0 just before it."""
+def full_width_params(dev, arch: str):
+    """The configuration at its published widths with bf16 weights drawn
+    from a seeded generator on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
-    from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
-    from repro_torch.kernels.support_core.ops import KERNEL
     from repro_torch.models import init_params
-    cfg, wl = get_config(arch), WORKLOADS[arch]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
@@ -812,8 +972,38 @@ def serve_full_width(dev, arch: str) -> dict:
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.attn_pattern} attention (window {cfg.window}), {cfg.act}, "
           f"bf16; weights drawn in {time.perf_counter() - t0:.1f}s")
-    torch.cuda.reset_peak_memory_stats()
+    return cfg, params
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
+    from repro_torch.kernels.support_core.ops import KERNEL
     KERNEL.launches = PAGED_KERNEL.launches = FLASH_KERNEL.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
+    from repro_torch.kernels.support_core.ops import KERNEL
+    return dict(support_core_burst=KERNEL.launches,
+                paged_decode_attention=PAGED_KERNEL.launches,
+                flash_attention=FLASH_KERNEL.launches)
+
+
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    for name, n in launches.items():
+        if n <= 0 or n != want[name]:
+            fail(f"{what}: {name} launches {n} != {want[name]} expected "
+                 f"from the engines' counters")
+
+
+def serve_full_width(dev, arch: str, cfg, params) -> dict:
+    """One configuration at its published widths; returns each kernel's
+    launches in that run, set to 0 just before it."""
+    wl = WORKLOADS[arch]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
     t0 = time.perf_counter()
     prefill_us: list = []
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
@@ -822,18 +1012,13 @@ def serve_full_width(dev, arch: str) -> dict:
                                              prefill_us=prefill_us)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(support_core_burst=KERNEL.launches,
-                    paged_decode_attention=PAGED_KERNEL.launches,
-                    flash_attention=FLASH_KERNEL.launches)
+    launches = read_launches()
     check_served(eng, sched, reqs)
     s, L = eng.stats, cfg.num_layers
-    want = dict(support_core_burst=s.commits,
-                paged_decode_attention=s.decode_steps * L,
-                flash_attention=s.prefill_passes * L)
-    for name, n in launches.items():
-        if n <= 0 or n != want[name]:
-            fail(f"{arch}: {name} launches {n} != {want[name]} expected "
-                 f"from the engine's counters")
+    check_launches(arch, launches, dict(
+        support_core_burst=s.commits,
+        paged_decode_attention=s.decode_steps * L,
+        flash_attention=s.prefill_passes * L))
     decode_tokens = sum(len(r.output) for r in reqs) - len(reqs)
     prompts = [r.prompt_len for r in reqs]
     print(f"  served {len(sched.finished)}/{len(reqs)} requests (prompts "
@@ -856,10 +1041,143 @@ def serve_full_width(dev, arch: str) -> dict:
           f"ms)")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
-    del eng, params
+    del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
                 peak_gib=peak, median_prefill_ms=prefill_ms)
+
+
+def shared_prefix_requests(cfg, n: int = MULTI["requests"]):
+    """``n`` requests from ``RandomState(0)``: two shared 64-token prefixes,
+    request i opening with prefix ``i % 2`` (round-robin routing sends it
+    to shard ``i % 2``, the shard that caches that prefix), then a unique
+    tail of 8-40 tokens."""
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.RandomState(0)
+    heads = [rng.randint(0, cfg.vocab_size, MULTI["prefix"]) for _ in range(2)]
+    return [Request(rid=i, tokens=np.concatenate([
+        heads[i % 2], rng.randint(0, cfg.vocab_size, rng.randint(8, 41))])
+        .astype(np.int32)) for i in range(n)]
+
+
+def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool):
+    """Two shards of ``SERVE_LANES`` lanes on one service, burst windows of
+    ``MULTI["quantum"]`` steps, round robin, preemption on, per-shard
+    prefix caches (LRU) in alias or copy mode."""
+    from repro_torch.models import make_paged_config
+    from repro_torch.serve.multi_engine import MultiEngine
+    from repro_torch.serve.scheduler import make_scheduler_config
+    kvcfg = make_paged_config(cfg, seq_len=MULTI["seq"], lanes=SERVE_LANES,
+                              page_size=MULTI["page"], dtype=dtype)
+    scfg = make_scheduler_config(cfg, kvcfg,
+                                 max_prompt_len=MULTI["max_prompt"])
+    return MultiEngine(cfg, kvcfg, params, n_engines=MULTI["engines"],
+                       sched_cfg=scfg, quantum=MULTI["quantum"],
+                       preemption=True, router="round_robin",
+                       prefix_cache=prefix_cache, eviction="lru",
+                       prefix_alias="alias" if alias else "copy", device=dev)
+
+
+def check_multi_served(me, reqs, what: str) -> None:
+    if len(me.finished) != len(reqs) or me.failed or me.has_work:
+        fail(f"{what}: served {len(me.finished)}/{len(reqs)} requests "
+             f"({len(me.failed)} failed)")
+    me.validate()
+
+
+def check_cache_used(me, what: str, alias: bool) -> None:
+    """Every shard hit its cache, saved prefill tokens and aliased (alias
+    mode) or copied (copy mode) pages; its last occupancy is its cache's
+    residue."""
+    for i, eng in enumerate(me.engines):
+        s = eng.stats
+        moved = s.aliased_pages if alias else s.cache_hit_copy_bytes
+        if not (s.cache_hits > 0 and s.prefill_tokens_saved > 0
+                and moved > 0):
+            fail(f"{what}: shard {i} hits {s.cache_hits}, saved "
+                 f"{s.prefill_tokens_saved} tokens, aliased "
+                 f"{s.aliased_pages} pages, copied "
+                 f"{s.cache_hit_copy_bytes} bytes")
+        used = eng.tenant_report()[eng.tenants.kv.name]["used"]
+        if used != s.cache_pages or eng.cache.pinned:
+            fail(f"{what}: shard {i} holds {used} pages at the end, its "
+                 f"cache {s.cache_pages} ({eng.cache.pinned} pinned)")
+
+
+def serve_multi_full_width(dev, cfg, params) -> dict:
+    """Phase 4c: the slice's path at full width; returns each kernel's
+    launches in that run, set to 0 just before it."""
+    reqs = shared_prefix_requests(cfg)
+    me = multi_engine(cfg, params, torch.bfloat16, dev, True, True)
+    miss_us: list = []
+    hit_us: list = []
+    for eng in me.engines:
+        time_prefill_passes(eng, miss_us, hit_us)
+    step_us: list = []
+    zero_launches()
+    t0 = time.perf_counter()
+    windows = me.serve(reqs, max_new_tokens=MULTI["new_tokens"],
+                       validate=True, step_times_us=step_us)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_multi_served(me, reqs, "4c")
+    check_cache_used(me, "4c", alias=True)
+    st, L = me.stats, cfg.num_layers
+    commits = sum(e.stats.commits for e in me.engines)
+    passes = sum(e.stats.prefill_passes for e in me.engines)
+    check_launches("4c", launches, dict(
+        support_core_burst=commits + st.window_bursts,
+        paged_decode_attention=st.decode_steps * L,
+        flash_attention=passes * L))
+    decode_tokens = sum(len(r.output) for r in reqs) - len(reqs)
+    tps = decode_tokens / (sum(step_us) / 1e6)
+    prompts = [r.prompt_len for r in reqs]
+    print(f"  served {len(me.finished)}/{len(reqs)} requests (prompts "
+          f"{min(prompts)}-{max(prompts)} tokens) on {me.n_engines} shards "
+          f"in {windows} windows, {st.decode_steps} engine-steps, "
+          f"{wall:.2f}s wall, I1-I6 after every window; launches: support "
+          f"core {launches['support_core_burst']} == {commits} engine "
+          f"commits + {st.window_bursts} window commits, paged "
+          f"{launches['paged_decode_attention']} == {st.decode_steps} "
+          f"engine-steps x {L}, flash {launches['flash_attention']} == "
+          f"{passes} prefill passes x {L}")
+    print(f"  window commits {st.window_commits} live of {st.window_bursts}, "
+          f"cross-engine burst occupancy "
+          f"{st.cross_engine_burst_occupancy:.3f}; decode {tps:.1f} "
+          f"tokens/s over {len(step_us)} engine-steps")
+    for i, eng in enumerate(me.engines):
+        s = eng.stats
+        print(f"  e{i}: admitted {s.admitted}, cache hits {s.cache_hits} / "
+              f"misses {s.cache_misses}, prefill tokens saved "
+              f"{s.prefill_tokens_saved}, aliased pages {s.aliased_pages}, "
+              f"cache pages {s.cache_pages}, {s.decode_steps} steps "
+              f"({s.decode_bursts} with a live emergency burst)")
+    med = {k: statistics.median(v) / 1e3 if v else float("nan")
+           for k, v in (("hit", hit_us), ("miss", miss_us))}
+    print(f"  prefill: {len(hit_us)} passes with a hit, median "
+          f"{med['hit']:.2f} ms; {len(miss_us)} without, median "
+          f"{med['miss']:.2f} ms")
+    for name, d in me.tenant_rollup().items():
+        print(f"  rollup {name}: {json.dumps(d)}")
+    outs = {r.rid: list(r.output) for r in reqs}
+    del me
+    off_reqs = shared_prefix_requests(cfg)
+    off = multi_engine(cfg, params, torch.bfloat16, dev, False, True)
+    off.serve(off_reqs, max_new_tokens=MULTI["new_tokens"])
+    check_multi_served(off, off_reqs, "4c cache off")
+    diff = sum(a != b for r in off_reqs
+               for a, b in zip(r.output, outs[r.rid]))
+    print(f"  tokens differing from the cache-off run: {diff} of "
+          f"{sum(len(v) for v in outs.values())} (not gated)")
+    del off
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tokens_per_s=tps,
+                window_commits=st.window_commits,
+                window_bursts=st.window_bursts,
+                occupancy=st.cross_engine_burst_occupancy,
+                median_prefill_hit_ms=med["hit"],
+                median_prefill_miss_ms=med["miss"], differing_tokens=diff)
 
 
 def top2_margin(cfg, params_cpu, tokens) -> float:
@@ -914,6 +1232,54 @@ def device_vs_cpu(dev, arch: str) -> None:
           f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
           f"(prompts {min(prompts)}-{max(prompts)}), allocator state "
           f"bit-identical")
+    multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+
+
+def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
+    """Two shards with the cache on (alias mode where the attention is
+    full, copy mode otherwise) on the card and on the CPU: identical
+    tokens, shared allocator state, block tables and stashes; and on the
+    card, cache-on tokens equal to cache-off tokens."""
+    alias = cfg.attn_pattern == "full"
+    runs = {}
+    for name, p, d, on in (("cuda", params_gpu, dev, True),
+                           ("cpu", params_cpu, "cpu", True),
+                           ("cuda, cache off", params_gpu, dev, False)):
+        reqs = shared_prefix_requests(cfg, MULTI["small_requests"])
+        me = multi_engine(cfg, p, torch.float32, d, on, alias)
+        me.serve(reqs, max_new_tokens=MULTI["new_tokens"], validate=True)
+        check_multi_served(me, reqs, f"{arch} multi-engine {name}")
+        if on:
+            check_cache_used(me, f"{arch} multi-engine {name}", alias)
+        runs[name] = (me, {r.rid: list(r.output) for r in reqs})
+    (mg, og), (mc, oc) = runs["cuda"], runs["cpu"]
+    if og != oc:
+        fail(f"{arch} multi-engine: tokens differ between cuda and cpu")
+    if og != runs["cuda, cache off"][1]:
+        fail(f"{arch} multi-engine: cache-on tokens differ from cache-off "
+             f"tokens")
+    for field in mg.alloc._fields:
+        if not torch.equal(getattr(mg.alloc, field).cpu(),
+                           getattr(mc.alloc, field)):
+            fail(f"{arch} multi-engine: shared allocator field {field} "
+                 f"differs between cuda and cpu")
+    for i, (eg, ec) in enumerate(zip(mg.engines, mc.engines)):
+        pg, pc = eg.state.paged, ec.state.paged
+        for field in ("block_tables", "seq_lens", "active"):
+            if not torch.equal(getattr(pg, field).cpu(), getattr(pc, field)):
+                fail(f"{arch} multi-engine: shard {i} {field} differs "
+                     f"between cuda and cpu")
+        if not (torch.equal(pg.stash.pages.cpu(), pc.stash.pages)
+                and np.array_equal(eg.cache.blocks(), ec.cache.blocks())):
+            fail(f"{arch} multi-engine: shard {i} stash or cache differs "
+                 f"between cuda and cpu")
+    hits = sum(e.stats.cache_hits for e in mg.engines)
+    print(f"  {arch} two shards, cache on ({'alias' if alias else 'copy'} "
+          f"mode): cuda and cpu agree on {sum(map(len, og.values()))} tokens "
+          f"over {mg.stats.decode_steps} engine-steps and {mg.stats.windows} "
+          f"windows ({hits} hits, {mg.stats.window_commits} live window "
+          f"commits), shared allocator state bit-identical; tokens equal the "
+          f"cache-off run's")
 
 
 def kernel_signature(name: str) -> str:
@@ -991,6 +1357,7 @@ def main() -> None:
 
     print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
+    multi_engine_parity(dev, par)
     t_burst = {name: time_burst(name, *case)
                for name, case in burst_cases(dev).items()}
     floor_ms = launch_floor_ms()
@@ -999,6 +1366,7 @@ def main() -> None:
     paged_split_parity(dev, errs)
     flash_parity(dev, errs)
     flash_edge_parity(dev, errs)
+    flash_offset_parity(dev, errs)
     determinism(dev)
     t_paged = {
         "deepseek-7b": time_paged(dev, 4, 32, 1, 128, 8, 33, 30,
@@ -1010,12 +1378,27 @@ def main() -> None:
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
-        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL)}
+        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL),
+        "deepseek-7b offset 64": time_flash(dev, 4, 64, 32, 32, 128, FULL,
+                                            P=64),
+        "gemma3-1b local offset 1024": time_flash(dev, 4, 512, 4, 1, 256,
+                                                  512, P=1024)}
 
     print("== 4. serve deepseek-7b at full width")
-    served = {"deepseek-7b": serve_full_width(dev, "deepseek-7b")}
+    cfg, params = full_width_params(dev, "deepseek-7b")
+    served = {"deepseek-7b": serve_full_width(dev, "deepseek-7b", cfg,
+                                              params)}
+    print("== 4c. two engine shards on one support core, deepseek-7b at "
+          "full width, prefix caches in alias mode")
+    served["deepseek-7b multi-engine"] = serve_multi_full_width(dev, cfg,
+                                                                params)
+    del params
+    torch.cuda.empty_cache()
     print("== 4b. serve gemma3-1b at full width")
-    served["gemma3-1b"] = serve_full_width(dev, "gemma3-1b")
+    cfg, params = full_width_params(dev, "gemma3-1b")
+    served["gemma3-1b"] = serve_full_width(dev, "gemma3-1b", cfg, params)
+    del params
+    torch.cuda.empty_cache()
 
     print("== 5. device against cpu")
     for arch in ("deepseek-7b", "gemma3-1b"):
@@ -1038,6 +1421,9 @@ def main() -> None:
              replaces="src/repro/kernels/support_core/support_core_kernel.py:205",
              **launches("support_core_burst"), max_abs_err=par.max_abs_err,
              parity_bursts=par.bursts,
+             multi_engine={k: v for k, v in
+                           served["deepseek-7b multi-engine"].items()
+                           if k != "launches"},
              **{k: t_burst["serve"][k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "bound_by")},
              library_ms=None, launch_floor_ms=floor_ms,

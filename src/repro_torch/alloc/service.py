@@ -8,10 +8,15 @@
   after :meth:`AllocService.commit` runs the burst as ONE support-core
   step, each ticket resolves to its own rows of the response.
 
+N engine shards register disjoint tenant sets under their own namespaces
+(``"e0/kv_pages"``, ``"e1/kv_pages"`` ...) on ONE service, and
+:meth:`AllocService.rollup_report` sums them by base name.
+``retag_blocks`` and ``bump_refcounts`` are the prefix cache's
+control-plane scatters (owner demotion, alias references): no burst.
+
 The policy step runs on the device of the state it is given: the CUDA
 kernel on the card, the plain PyTorch version on the CPU.  The allocator-op
-recorder, ``retag_blocks`` and ``bump_refcounts`` of the JAX service wait
-for the prefix cache and trace replay (ROADMAP.md, Queue 1).
+recorder of the JAX service waits for trace replay (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -29,18 +34,35 @@ from .policies import FreeListPolicy, get_policy
 
 I32 = torch.int32
 
+#: Separator between an engine namespace and the base tenant name
+#: (``"e0/kv_pages"``).
+NAMESPACE_SEP = "/"
+
 
 class TenantHandle(NamedTuple):
     """A registered client of the support-core (one size class); its
-    ``capacity`` is its hard block quota."""
+    ``capacity`` is its hard block quota.  ``size_class`` is a Python int,
+    or a 0-d int32 tensor inside a decode step shared by many shards
+    (:meth:`repro_torch.core.paged_kv.PagedTenants.with_class_ids`)."""
 
     name: str
-    size_class: int
+    size_class: Union[int, torch.Tensor]
     capacity: int
 
     @property
     def quota(self) -> int:
         return self.capacity
+
+    @property
+    def namespace(self) -> str:
+        """Engine namespace prefix (empty for un-namespaced tenants)."""
+        return self.name.rsplit(NAMESPACE_SEP, 1)[0] \
+            if NAMESPACE_SEP in self.name else ""
+
+    @property
+    def base_name(self) -> str:
+        """Tenant name with the engine namespace stripped (rollup key)."""
+        return self.name.rsplit(NAMESPACE_SEP, 1)[-1]
 
 
 class Ticket(NamedTuple):
@@ -107,6 +129,11 @@ class BurstBuilder:
         self._classes: list[torch.Tensor] = []
         self._args: list[torch.Tensor] = []
         self._size = 0
+
+    @property
+    def size(self) -> int:
+        """Number of staged packet slots (the burst's queue capacity)."""
+        return self._size
 
     def _vec(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=I32, device=self._service.device)
@@ -203,11 +230,38 @@ class AllocService:
         self._tenants[name] = handle
         return handle
 
-    def register_tenants(self, spec: Sequence[tuple[str, int]]
-                         ) -> tuple[TenantHandle, ...]:
-        """Register ``[(name, capacity), ...]`` in order (order fixes the
-        size-class indices)."""
-        return tuple(self.register_tenant(name, cap) for name, cap in spec)
+    def register_tenants(self, spec: Sequence[tuple[str, int]],
+                         namespace: str = "") -> tuple[TenantHandle, ...]:
+        """Register ``[(base_name, capacity), ...]`` in order (order fixes
+        the size-class indices); a non-empty ``namespace`` prefixes every
+        name (``"e0" -> "e0/kv_pages"``), so N engine shards register
+        disjoint tenant sets on one service."""
+        if namespace and NAMESPACE_SEP in namespace:
+            raise ValueError(
+                f"namespace {namespace!r} must not contain {NAMESPACE_SEP!r}")
+        prefix = f"{namespace}{NAMESPACE_SEP}" if namespace else ""
+        return tuple(self.register_tenant(f"{prefix}{name}", cap)
+                     for name, cap in spec)
+
+    def tenant(self, name: str, namespace: str = "") -> TenantHandle:
+        if namespace:
+            name = f"{namespace}{NAMESPACE_SEP}{name}"
+        try:
+            return self._tenants[name]
+        except KeyError:
+            raise KeyError(f"unknown tenant {name!r}; registered: "
+                           f"{list(self._tenants)}") from None
+
+    def namespace_tenants(self, namespace: str) -> tuple[TenantHandle, ...]:
+        """All tenants registered under one engine namespace."""
+        prefix = f"{namespace}{NAMESPACE_SEP}"
+        return tuple(t for t in self.tenants if t.name.startswith(prefix))
+
+    @property
+    def namespaces(self) -> tuple[str, ...]:
+        """Distinct engine namespaces, in registration order."""
+        return tuple(dict.fromkeys(t.namespace for t in self.tenants
+                                   if t.namespace))
 
     @property
     def tenants(self) -> tuple[TenantHandle, ...]:
@@ -231,6 +285,39 @@ class AllocService:
 
     def new_burst(self) -> BurstBuilder:
         return BurstBuilder(self)
+
+    def retag_blocks(self, state: FreeListState, tenant: TenantHandle,
+                     blocks, new_owner: int) -> FreeListState:
+        """Rewrite ``owner[class, block]`` of live blocks (no burst): the
+        prefix cache's demotion.  A lane's FREE_ALL matches ``owner ==
+        lane`` and so skips retagged blocks; single frees still reclaim
+        them.  Counters and ``used`` are untouched (the pages stay charged
+        to the tenant)."""
+        blocks = torch.as_tensor(blocks, dtype=torch.long,
+                                 device=state.owner.device).reshape(-1)
+        if not blocks.numel():
+            return state
+        owner = state.owner.clone()
+        owner[tenant.size_class, blocks] = int(new_owner)
+        return state._replace(owner=owner)
+
+    def bump_refcounts(self, state: FreeListState, tenant: TenantHandle,
+                       blocks, delta: int = 1) -> FreeListState:
+        """Add ``delta`` to ``refcount[class, block]`` per listed id,
+        duplicates accumulating (no burst): the alias splice's reference
+        count.  Ids at or past the class's width (the JAX package's
+        dropped sentinels) are skipped."""
+        blocks = torch.as_tensor(blocks, dtype=torch.long,
+                                 device=state.refcount.device).reshape(-1)
+        if not blocks.numel():
+            return state
+        row = state.refcount[tenant.size_class]
+        add = torch.zeros((row.shape[0] + 1,), dtype=I32, device=row.device)
+        add.index_add_(0, blocks.clamp(max=row.shape[0]),
+                       torch.full_like(blocks, int(delta), dtype=I32))
+        refcount = state.refcount.clone()
+        refcount[tenant.size_class] = row + add[:-1]
+        return state._replace(refcount=refcount)
 
     def commit(
         self,
@@ -313,4 +400,19 @@ class AllocService:
             c = t.size_class
             out[t.name] = {"size_class": c, "quota": t.quota,
                            **{k: v[c] for k, v in f.items()}}
+        return out
+
+    def rollup_report(self, state: FreeListState) -> dict[str, dict]:
+        """Cross-engine rollup: :meth:`tenant_report` summed by base tenant
+        name over every namespace on this service, with an ``engines``
+        count (``"e0/kv_pages"`` + ``"e1/kv_pages"`` -> ``"kv_pages"``)."""
+        out: dict[str, dict] = {}
+        keys = ("quota", "used", "peak_used", "alloc_count", "free_count",
+                "fail_count")
+        for t, rep in zip(self.tenants, self.tenant_report(state).values()):
+            d = out.setdefault(t.base_name,
+                               {"engines": 0, **{k: 0 for k in keys}})
+            d["engines"] += 1
+            for k in keys:
+                d[k] += rep[k]
         return out

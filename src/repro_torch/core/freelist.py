@@ -106,6 +106,8 @@ def validate_freelist(
     stash_class: int = 0,
     tenant_names: Sequence[str] | None = None,
     refcount_expected=None,
+    cache_pages=None,
+    cache_owner: int | None = None,
 ) -> None:
     """Host-side invariant check (tests / debugging only).
 
@@ -114,13 +116,17 @@ def validate_freelist(
       I3. used == capacity - free_top
       I4. every block is either on the stack or owned (exactly once)
       I5. (stash given) every block of the stash's class is exactly one of
-          {central free stack, some lane's stash, in use}; stashed blocks
-          are owner-mapped to their lane.
+          {central free stack, some lane's stash, in use, prefix cache};
+          stashed blocks are owner-mapped to their lane and cached blocks
+          to ``cache_owner``.  A cached block may also sit in live block
+          tables (an alias); for the partition it counts once, as cached.
       I6. a block's refcount is positive iff it is owned; with
-          ``refcount_expected`` the stash class's refcounts equal it.
+          ``refcount_expected`` the stash class's refcounts equal it (the
+          caller's block-table in-degree plus cache and stash references).
 
-    The prefix-cache partition of the JAX package's check waits for the
-    prefix cache's port.
+    ``cache_pages`` with ``cache_owner`` (the demotion owner tag) lists the
+    prefix cache's blocks; every block owner-mapped to ``cache_owner`` must
+    be listed (no leaked demotion).
     """
     def fail(msg: str):
         raise FreelistInvariantError(
@@ -215,8 +221,33 @@ def validate_freelist(
           f"I5 (stash partition) violated: block(s) {dup[:8].tolist()} of "
           f"{cname(c)} on both the central stack and a lane stash")
 
+    cached = np.asarray(_host(cache_pages) if cache_pages is not None
+                        else [], np.int64)
+    if cache_owner is not None:
+        check(len(np.unique(cached)) == len(cached),
+              "I5 (cache partition) violated: block cached twice")
+        if cached.size:
+            check(cached.min() >= 0 and cached.max() < cap,
+                  f"I5 (cache partition) violated: cached out-of-range id "
+                  f"(capacity {cap})")
+            bad = cached[owner[c, cached] != cache_owner]
+            check(bad.size == 0,
+                  f"I5 (cache partition) violated: cached block(s) "
+                  f"{bad[:8].tolist()} not owner-mapped to the cache owner "
+                  f"{cache_owner}")
+        tagged = np.where(owner[c, :cap] == cache_owner)[0]
+        check(np.array_equal(np.sort(cached), tagged),
+              f"I5 (cache partition) violated: owner map tags "
+              f"{len(tagged)} block(s) as cache-owned but the cache lists "
+              f"{len(cached)} -- demoted pages leaked outside the cache")
+        for what, ids in (("free", stack_ids), ("stashed", stashed)):
+            dup = np.intersect1d(cached, ids)
+            check(not dup.size,
+                  f"I5 (cache partition) violated: block(s) "
+                  f"{dup[:8].tolist()} both cached and {what}")
+
     if in_use is not None:
-        used_ids = np.where(_host(in_use)[:cap])[0]
+        used_ids = np.setdiff1d(np.where(_host(in_use)[:cap])[0], cached)
         dup = np.intersect1d(used_ids, stashed)
         check(not dup.size,
               f"I5 (stash partition) violated: block(s) {dup[:8].tolist()} "
@@ -229,9 +260,11 @@ def validate_freelist(
         check(bad.size == 0,
               f"I5 (partition) violated: in-use block(s) {bad[:8].tolist()} "
               f"of {cname(c)} not owner-mapped")
-        check(len(stack_ids) + len(stashed) + len(used_ids) == cap,
+        check(len(stack_ids) + len(stashed) + len(used_ids) + len(cached)
+              == cap,
               f"I5 (partition) violated: stack {len(stack_ids)} + "
-              f"stash {len(stashed)} + in-use {len(used_ids)} != capacity "
+              f"stash {len(stashed)} + in-use {len(used_ids)} + cache "
+              f"{len(cached)} != capacity "
               f"{cap} for {cname(c)}")
 
     if refcount_expected is not None:
@@ -241,5 +274,5 @@ def validate_freelist(
         check(bad.size == 0,
               f"I6 (refcount == in-degree) violated: {cname(c)} block(s) "
               f"{bad[:8].tolist()} carry refcount {got[bad[:8]].tolist()} "
-              f"but their block-table + stash references are "
+              f"but their block-table + cache + stash references are "
               f"{expected[bad[:8]].tolist()}")

@@ -5,10 +5,16 @@
 // (flash_attention_kernel / _kernel) and computes the function of its
 // oracle ref.py (flash_attention_ref -> models/attention.py
 // naive_attention): q [B, Tq, H, hd], k / v [B, Tk, KV, hd], query head h
-// reads KV head h / G; causal keeps k_pos <= q_pos, the window keeps
-// k_pos > q_pos - window; online softmax in f32; output in q's dtype.
-// Unlike the Pallas kernel, Tq and Tk need not be multiples of a tile: the
-// ragged tail is masked (and its rows are zero-filled, never loaded).
+// reads KV head h / G; query row i sits at absolute position
+// q_pos = q_offset + i and key j at j; causal keeps k_pos <= q_pos, the
+// window keeps k_pos > q_pos - window; online softmax in f32; output in
+// q's dtype.  Unlike the Pallas kernel, Tq and Tk need not be multiples
+// of a tile: the ragged tail is masked (and its rows are zero-filled,
+// never loaded); and queries may start past key 0 (q_offset: a prefill of
+// an uncached suffix over a cached prefix, Tk = q_offset + Tq).  Every
+// reachability test below runs on absolute positions, so a q_offset that
+// is not a multiple of a tile moves the diagonal inside tiles; q_offset =
+// 0 computes exactly what the kernel computed without it.
 //
 // Bound: operations.  4 * hd flops per reachable (q, k) pair and head
 // against ~2 * hd * 2 bytes per key row; at the prefill shapes the bf16
@@ -91,7 +97,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Tq, int Tk, int H,
-    int KV, int causal, int window, float scale) {
+    int KV, int causal, int window, int q_offset, float scale) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;       // output columns per thread
   extern __shared__ float smem[];
@@ -112,10 +118,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
   load_tile<T, HD>(q_s, qb, q0, Tq, q_rs, scale);
 
+  // absolute positions: row r of the tile at q_offset + q0 + r
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const long long lo_w = static_cast<long long>(q0) - window + 1;
+  const long long lo_w = static_cast<long long>(q_offset) + q0 - window + 1;
   const int k_begin = lo_w > 0 ? static_cast<int>(lo_w) : 0;
-  const int k_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_end = causal ? min(Tk, q_offset + q_last + 1) : Tk;
+  const int qp0 = q_offset + q0 + ty;   // position of this thread's row 0
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -152,7 +160,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = qp0 + 16 * i;
       bool valid[4];
       float mx = NEG_INF;
 #pragma unroll
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    const int r = blockIdx.x * BQ + ty + 16 * i;
     if (r >= Tq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -215,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Tq, int Tk, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (3 * BQ * (HD + 1) + BQ * LDP);
   auto kernel = flash_attention_kernel<T, HD>;
   if (bytes > 48 * 1024) {
@@ -228,7 +236,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, H, KV, causal,
-      window, static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+      window, q_offset,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -331,7 +340,7 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS) flash_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int Tq, int Tk, int H,
-    int KV, int causal, int window, float scale_log2) {
+    int KV, int causal, int window, int q_offset, float scale_log2) {
   constexpr int BK = BlockK<HD>::value;
   constexpr int NT = BK / 8;    // 8-key column tiles of S
   constexpr int NO = HD / 8;    // 8-wide column tiles of O
@@ -352,10 +361,11 @@ __global__ void __launch_bounds__(THREADS) flash_mma_kernel(
   const bf16* vb = v + (static_cast<long long>(b) * Tk * KV + kvh) * HD;
 
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const long long lo_w = static_cast<long long>(q0) - window + 1;
+  const long long lo_w = static_cast<long long>(q_offset) + q0 - window + 1;
   const int k_begin = lo_w > 0 ? static_cast<int>(lo_w) : 0;
-  const int k_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_end = causal ? min(Tk, q_offset + q_last + 1) : Tk;
   const int qw0 = q0 + 16 * warp;              // this warp's first row
+  const int pw0 = q_offset + qw0;              // ... and its position
 
   load_tile<HD, BQ>(q_s, qb, q0, Tq, q_rs);
   if (k_begin < k_end) {
@@ -386,9 +396,9 @@ __global__ void __launch_bounds__(THREADS) flash_mma_kernel(
 
     // can any row of this warp see any key of this tile?
     const bool live =
-        qw0 < Tq && !(causal && k0 > qw0 + 15) &&
+        qw0 < Tq && !(causal && k0 > pw0 + 15) &&
         static_cast<long long>(k0) + BK - 1 >
-            static_cast<long long>(qw0) - window;
+            static_cast<long long>(pw0) - window;
     if (!live) continue;
     float s[NT][4];
 #pragma unroll
@@ -416,15 +426,15 @@ __global__ void __launch_bounds__(THREADS) flash_mma_kernel(
     }
     // elementwise mask only where the tile straddles an edge
     const bool edge =
-        k0 + BK > Tk || (causal && k0 + BK - 1 > qw0) ||
+        k0 + BK > Tk || (causal && k0 + BK - 1 > pw0) ||
         static_cast<long long>(k0) <=
-            static_cast<long long>(qw0) + 15 - window;
+            static_cast<long long>(pw0) + 15 - window;
     if (edge) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = qw0 + g + (e / 2) * 8;
+          const int row = pw0 + g + (e / 2) * 8;
           const int col = k0 + 8 * j + 2 * t4 + (e % 2);
           const bool ok = col < Tk && (!causal || col <= row) &&
                           static_cast<long long>(col) >
@@ -507,7 +517,7 @@ __global__ void __launch_bounds__(THREADS) flash_mma_kernel(
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Tq, int Tk, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+           int q_offset, cudaStream_t stream) {
   const size_t bytes = sizeof(bf16) * (BQ + 4 * BlockK<HD>::value) * HD;
   auto kernel = flash_mma_kernel<HD>;
   if (bytes > 48 * 1024) {
@@ -521,7 +531,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Tq, Tk, H, KV,
-      causal, window,
+      causal, window, q_offset,
       static_cast<float>(log2e / std::sqrt(static_cast<double>(HD))));
   return static_cast<int>(cudaGetLastError());
 }
@@ -531,13 +541,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // f32 -> the CUDA-core kernel, bf16 -> the tensor-core kernel
 int launch_hd(bool f32, int hd, const void* q, const void* k, const void* v,
               void* out, int B, int Tq, int Tk, int H, int KV, int causal,
-              int window, cudaStream_t stream) {
+              int window, int q_offset, cudaStream_t stream) {
 #define FLASH_HD(N)                                                         \
   case N:                                                                   \
     return f32 ? launch<float, N>(q, k, v, out, B, Tq, Tk, H, KV, causal,   \
-                                  window, stream)                           \
+                                  window, q_offset, stream)                 \
                : tc::launch<N>(q, k, v, out, B, Tq, Tk, H, KV, causal,      \
-                               window, stream);
+                               window, q_offset, stream);
   switch (hd) {
     FLASH_HD(16)
     FLASH_HD(32)
@@ -556,17 +566,18 @@ extern "C" {
 
 // One prefill-attention launch on `stream`; returns cudaGetLastError()
 // (0 = launched).  dtype: 0 = float32, 1 = bfloat16.  All tensors are
-// contiguous.
+// contiguous.  q_offset: absolute position of query row 0, in [0, 2^30).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Tq, int Tk, int H, int KV,
-                           int hd, int causal, int window, int dtype,
-                           void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || KV <= 0 || H % KV != 0)
+                           int hd, int causal, int window, int q_offset,
+                           int dtype, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || KV <= 0 || H % KV != 0 ||
+      q_offset < 0 || q_offset >= (1 << 30) || Tq >= (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_hd(dtype == 0, hd, q, k, v, out, B, Tq, Tk, H, KV, causal,
-                   window, s);
+                   window, q_offset, s);
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@
 The JAX op's ``block_q``/``block_k`` are Pallas tiling knobs and its
 ``impl``/``interpret`` switches choose a TPU path; the port has none of
 them: the kernel picks its own 64 x 64 tiles, masks a ragged tail, and the
-device decides the path:
+device decides the path.  Unlike the Pallas kernel, which aligns query 0
+with key 0, it takes a query offset (``q_offset``: a prefix-cache hit's
+suffix attends over the cached prefix's keys):
 
 * a CUDA ``q`` launches the hand-written kernel or raises;
 * a CPU ``q`` runs the plain version (:mod:`.ref`).
@@ -30,7 +32,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -45,10 +47,14 @@ def flash_attention_op(
     v: torch.Tensor,
     causal: bool = True,
     window: int = FULL_WINDOW,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Returns ``[B, Tq, H, hd]`` in q's dtype."""
+    """Returns ``[B, Tq, H, hd]`` in q's dtype.  Query row i sits at
+    absolute position ``q_offset + i`` and key j at ``j``: a prefill of a
+    suffix over ``q_offset`` cached keys passes ``Tk = q_offset + Tq``."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
     B, Tq, H, hd = q.shape
@@ -61,6 +67,8 @@ def flash_attention_op(
                          f"H={H} KV={KV}")
     if not -2**31 <= window < 2**31:
         raise ValueError(f"window {window} does not fit int32")
+    if not 0 <= q_offset < 2**30:
+        raise ValueError(f"q_offset {q_offset} outside [0, 2**30)")
     for name, t, shape in (("q", q, (B, Tq, H, hd)), ("k", k, (B, Tk, KV, hd)),
                            ("v", v, (B, Tk, KV, hd))):
         if t.device != q.device or t.dtype != q.dtype:
@@ -74,8 +82,9 @@ def flash_attention_op(
     out = torch.empty_like(q)
     err = FLASH_KERNEL.lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
-        H, KV, hd, int(causal), int(window), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    FLASH_KERNEL.check(err, f"B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} hd={hd}")
+        H, KV, hd, int(causal), int(window), int(q_offset),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    FLASH_KERNEL.check(err, f"B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} hd={hd} "
+                            f"q_offset={q_offset}")
     FLASH_KERNEL.launches += 1
     return out

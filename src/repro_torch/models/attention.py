@@ -38,10 +38,12 @@ def mea_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    q_offset: int = 0,                          # absolute position of q[0]
     kv_valid: Optional[torch.Tensor] = None,   # [B, Tk] bool
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Chunked online-softmax attention; returns ``[B, Tq, H, hd]``."""
+    """Chunked online-softmax attention; returns ``[B, Tq, H, hd]``.  Query
+    row i sits at absolute position ``q_offset + i``, key j at ``j``."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -58,7 +60,7 @@ def mea_attention(
         kv_valid = torch.nn.functional.pad(kv_valid, (0, pad))
 
     qg = q.reshape(B, Tq, KV, G, hd).float() * scale
-    q_pos = torch.arange(Tq, dtype=torch.int32, device=dev)
+    q_pos = q_offset + torch.arange(Tq, dtype=torch.int32, device=dev)
     m_run = torch.full((B, Tq, KV, G), NEG_INF, dtype=torch.float32,
                        device=dev)
     l_run = torch.zeros((B, Tq, KV, G), dtype=torch.float32, device=dev)
@@ -85,10 +87,10 @@ def mea_attention(
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
-    """O(Tq * Tk) oracle; ``[B, Tq, H, hd]``.  Rows with no valid key give
-    zeros."""
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """O(Tq * Tk) oracle; ``[B, Tq, H, hd]``, query row i at absolute
+    position ``q_offset + i``.  Rows with no valid key give zeros."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -96,7 +98,7 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, Tq, KV, G, hd).float()
     s = torch.einsum("btkgd,bskd->btkgs", qg, k.float()) * scale
-    q_pos = torch.arange(Tq, dtype=torch.int32, device=dev)
+    q_pos = q_offset + torch.arange(Tq, dtype=torch.int32, device=dev)
     k_pos = torch.arange(Tk, dtype=torch.int32, device=dev)
     mask = _mask_chunk(q_pos, k_pos, causal, window)[None, :, None, None, :]
     s = torch.where(mask, s, NEG_INF)

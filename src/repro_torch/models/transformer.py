@@ -105,13 +105,24 @@ class DenseLM(nn.Module):
             return x @ self.embed.T
         return x @ self.unembed
 
-    def forward(self, tokens: torch.Tensor, return_kv: bool = False):
+    def forward(self, tokens: torch.Tensor, return_kv: bool = False,
+                prefix_kv=None, pos_offset: int = 0):
         """Full-sequence logits ``[B, S, V]``; with ``return_kv`` also the
-        per-layer ``(k, v)``, each ``[num_layers, B, S, KV, hd]``."""
+        per-layer ``(k, v)``, each ``[num_layers, B, S, KV, hd]``.
+
+        ``prefix_kv`` = (pk, pv), each ``[num_layers, B, P, KV, hd]``: cached
+        K/V of absolute positions ``[0, P)`` (roped there when written),
+        with ``pos_offset == P``.  ``tokens`` then continue the sequence
+        from position P, and logits and K/V come back for them alone (the
+        prefix cache's prefill skip)."""
         x = self.embed[tokens.long()]
         ks, vs = [], []
-        for lp, window in zip(self.layers, layer_windows(self.cfg)):
-            x, (k, v) = _attn_block_seq(self.cfg, lp, x, window)
+        for li, (lp, window) in enumerate(zip(self.layers,
+                                              layer_windows(self.cfg))):
+            pkv = None if prefix_kv is None \
+                else (prefix_kv[0][li], prefix_kv[1][li])
+            x, (k, v) = _attn_block_seq(self.cfg, lp, x, window,
+                                        q_offset=pos_offset, prefix_kv=pkv)
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -122,8 +133,14 @@ class DenseLM(nn.Module):
 
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
-                    window: int):
+                    window: int, q_offset: int = 0, prefix_kv=None):
     """One block over a full sequence; returns ``(x, (k, v))``.
+
+    The sequence sits at absolute positions ``[q_offset, q_offset + T)``
+    (RoPE is applied there); ``prefix_kv`` = (pk, pv), each ``[B, P, KV,
+    hd]``, holds the cached keys of positions ``[0, P)`` with ``P ==
+    q_offset``, which the queries attend over before their own.  The
+    returned ``(k, v)`` cover the sequence alone.
 
     Causal attention goes through the flash kernel for CUDA tensors and
     through ``mea_attention`` -- the JAX prefill's own arithmetic, which
@@ -133,13 +150,21 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     h = rmsnorm(lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
                           cfg.num_kv_heads, hd)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
+                                        device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if x.device.type == "cuda":
-        attn = flash_attention_op(q, k, v, causal=True, window=window)
+    if prefix_kv is not None:
+        k_all = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
+        v_all = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
     else:
-        attn = mea_attention(q, k, v, causal=True, window=window)
+        k_all, v_all = k, v
+    if x.device.type == "cuda":
+        attn = flash_attention_op(q, k_all, v_all, causal=True, window=window,
+                                  q_offset=q_offset)
+    else:
+        attn = mea_attention(q, k_all, v_all, causal=True, window=window,
+                             q_offset=q_offset)
     x = x + out_project(lp.wo, attn)
     h = rmsnorm(lp.ln_mlp, x)
     return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act), (k, v)
@@ -152,6 +177,9 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
     return DenseLM(cfg, dtype, torch.device(device), gen)
 
 
-def forward(params: DenseLM, tokens: torch.Tensor, return_kv: bool = False):
-    """Full-sequence logits (and per-layer K/V with ``return_kv``)."""
-    return params(tokens, return_kv=return_kv)
+def forward(params: DenseLM, tokens: torch.Tensor, return_kv: bool = False,
+            prefix_kv=None, pos_offset: int = 0):
+    """Full-sequence logits (and per-layer K/V with ``return_kv``); see
+    :meth:`DenseLM.forward` for the cached prefix."""
+    return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
+                  pos_offset=pos_offset)

@@ -4,8 +4,14 @@
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
 (``decode_append``); the prefill's attention is the flash kernel on the
-card.  PyTorch runs eagerly, so there is no compiled executable to count:
-the JAX package's ``CountingJit`` has no counterpart here.
+card.
+
+All shards of a multi-engine deployment share one decode step: the step
+takes the shard's size-class ids as data (``class_ids``, a tensor), as the
+JAX package's tenant-agnostic step takes them as a traced operand.
+PyTorch runs eagerly, so there is no compiled executable to count: the
+JAX package's ``CountingJit`` and its ``decode_compiles`` /
+``decode_compile_us`` counters have no counterpart here.
 """
 from __future__ import annotations
 
@@ -77,20 +83,29 @@ def init_serve_state(
 
 
 def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
-                     tenants: PagedTenants):
-    """Returns ``serve_step(params, state) -> (state, logits, DecodeStats)``.
+                     tenants: PagedTenants, defer_refill: bool = False):
+    """Returns ``serve_step(params, state, class_ids=None) -> (state,
+    logits, DecodeStats)``, plus the step's
+    :class:`~repro_torch.core.paged_kv.PendingDecodeOps` with
+    ``defer_refill``.
 
     The step's one allocator burst goes through ``tenants.service``: the
-    CUDA kernel when the state lives on the card.
+    CUDA kernel when the state lives on the card.  ``class_ids``
+    (:meth:`~repro_torch.core.paged_kv.PagedTenants.class_id_array`) points
+    that burst at the calling shard's classes; ``tenants`` then gives only
+    the structure (which handles exist) and the service.
     """
-    def serve_step(params: DenseLM, state: ServeState):
+    def serve_step(params: DenseLM, state: ServeState,
+                   class_ids: Optional[torch.Tensor] = None):
+        step_tenants = tenants if class_ids is None \
+            else tenants.with_class_ids(class_ids)
         hidden, (new_k, new_v) = decode_hidden(
             params, cfg, state.paged, state.tokens)
         logits = decode_logits(params, hidden)
         next_tokens = logits.argmax(dim=-1).to(I32)
-        paged, stats = decode_append(kvcfg, state.paged, new_k, new_v,
-                                     tenants)
-        return ServeState(paged=paged, tokens=next_tokens), logits, stats
+        paged, *rest = decode_append(kvcfg, state.paged, new_k, new_v,
+                                     step_tenants, defer_refill=defer_refill)
+        return (ServeState(paged=paged, tokens=next_tokens), logits, *rest)
 
     return serve_step
 
@@ -106,12 +121,25 @@ class PrefillResult(NamedTuple):
 def make_family_prefill(cfg: ArchConfig):
     """Returns ``prefill(params, batch) -> PrefillResult`` for a batch of
     right-padded ``tokens [B, T]`` with real ``lengths [B]`` (causal
-    masking keeps the padding invisible to the real positions)."""
+    masking keeps the padding invisible to the real positions).
+
+    A prefix-cache hit adds ``prefix_k`` / ``prefix_v``, each ``[B, L, P,
+    KV, hd]``: the cached K/V of absolute positions ``[0, P)``.  ``tokens``
+    are then the uncached suffix, ``lengths`` count suffix tokens, and
+    logits and K/V come back for the suffix alone."""
 
     def prefill(params: DenseLM, batch: dict) -> PrefillResult:
         toks = batch["tokens"]
         lengths = batch["lengths"].long()
-        logits, (ks, vs) = forward(params, toks, return_kv=True)
+        pk = batch.get("prefix_k")
+        if pk is None:
+            logits, (ks, vs) = forward(params, toks, return_kv=True)
+        else:
+            logits, (ks, vs) = forward(
+                params, toks, return_kv=True,
+                prefix_kv=(pk.transpose(0, 1),
+                           batch["prefix_v"].transpose(0, 1)),
+                pos_offset=pk.shape[2])
         rows = torch.arange(toks.shape[0], device=toks.device)
         last = logits[rows, lengths - 1]
         return PrefillResult(last, (ks.transpose(0, 1), vs.transpose(0, 1)))

@@ -7,6 +7,7 @@
   (``scaled_dot_product_attention``, cuDNN, ``torch.compile``): its
   kernels are written by hand.  ``chip_smoke.py`` may time one as a
   yardstick.
+* No module of ``src/repro_torch`` reads an environment variable.
 * Without a card, an entry point called without ``device="cpu"`` raises
   instead of falling back to the CPU.
 * The kernel wrapper on CPU tensors runs the plain version and leaves its
@@ -23,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 PORT_TOOLS = [ROOT / "tools" / name for name in (
-    "decode_step_time.py", "kernel_time.py", "profile_torch_serve.py")]
+    "decode_step_time.py", "flash_identity.py", "kernel_time.py",
+    "prefill_hit_time.py", "profile_torch_serve.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -61,6 +63,18 @@ def test_port_calls_no_library_attention(path):
     assert not bad, f"{path.relative_to(ROOT)} uses {sorted(bad)}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES[:-1]])
+def test_port_reads_no_environment(path):
+    """Knobs that the JAX package reads from the environment
+    (``REPRO_PREFIX_ALIAS``, ``REPRO_KV_EVICTION`` ...) are explicit
+    arguments in the port."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("environ", "getenv", "environb"), \
+                f"{path.relative_to(ROOT)} reads the environment"
+
+
 def test_port_has_its_modules():
     """Every module of the slice sits under the JAX package's name."""
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
@@ -78,7 +92,9 @@ def test_port_has_its_modules():
                 "alloc/service.py", "models/layers.py", "models/attention.py",
                 "models/transformer.py", "models/decode.py",
                 "models/model_zoo.py", "serve/serve_step.py",
-                "serve/scheduler.py", "serve/engine.py", "launch/serve.py"):
+                "serve/scheduler.py", "serve/engine.py", "launch/serve.py",
+                "serve/router.py", "serve/multi_engine.py",
+                "alloc/eviction.py"):
         assert mod in names, mod
 
 
@@ -102,6 +118,12 @@ def test_entry_points_raise_without_card():
         ServingEngine(cfg, kvcfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "deepseek-7b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "deepseek-7b", "--requests", "1", "--engines", "2",
+              "--prefix-cache", "on", "--prefix-alias", "alias"])
+    from repro_torch.serve.multi_engine import MultiEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiEngine(cfg, kvcfg, params, n_engines=2)
 
 
 def test_kernel_wrapper_on_cpu_uses_plain_version():
