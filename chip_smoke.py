@@ -96,6 +96,11 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM non-tensor f32 rate, per data sheet
 TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 FULL = 1 << 30                 # "no window"
 SERVE_LANES = 4
+# prefill over a cached prefix at the serving shapes, 4 lanes:
+# (Tq, q_offset, H, KV, hd, window)
+OFFSET_SHAPES = {
+    "deepseek-7b offset 64": (64, 64, 32, 32, 128, FULL),
+    "gemma3-1b local offset 1024": (512, 1024, 4, 1, 256, 512)}
 # per architecture: pool shape, prompt mix and generation length
 WORKLOADS = {
     "deepseek-7b": dict(seq=256, page=8, max_prompt=128, requests=8,
@@ -709,38 +714,36 @@ def flash_edge_parity(dev, errs: Errors) -> None:
 def flash_offset_parity(dev, errs: Errors) -> None:
     """Flash prefill over a cached prefix: query offsets 8, 24, 64, 72 and
     1200 (none a multiple of a query tile), windows none and 512, hd 128
-    and 256 with G 1 and 4, ragged Tq, in f32 and bf16, against the plain
-    version; offset 0 bit-identical to the call without one; two launches
-    bit-identical."""
+    and 256 with G 1 and 4, ragged Tq, and the two offset serving shapes
+    that phase 3 times, in f32 and bf16, against the plain version; offset
+    0 bit-identical to the call without one; two launches bit-identical."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.RandomState(7)
+    cases = [(2, Tq, P, 2 * G, 2, hd, window)
+             for P in (0, 8, 24, 64, 72, 1200) for Tq in (37, 100)
+             for window in (FULL, 512) for hd, G in ((128, 1), (256, 4))]
+    cases += [(4, *shape) for shape in OFFSET_SHAPES.values()]
     n = 0
     for dt in (torch.float32, torch.bfloat16):
-        for P in (0, 8, 24, 64, 72, 1200):
-            for Tq in (37, 100):
-                for window in (FULL, 512):
-                    for hd, G in ((128, 1), (256, 4)):
-                        q = rand(rng, (2, Tq, 2 * G, hd), dt, dev)
-                        k = rand(rng, (2, P + Tq, 2, hd), dt, dev)
-                        v = rand(rng, (2, P + Tq, 2, hd), dt, dev)
-                        got = flash_attention_op(q, k, v, window=window,
-                                                 q_offset=P)
-                        again = flash_attention_op(q, k, v, window=window,
-                                                   q_offset=P)
-                        if not torch.equal(got, again):
-                            fail(f"flash kernel: two launches with offset "
-                                 f"{P} differ ({dt})")
-                        if P == 0 and not torch.equal(
-                                got, flash_attention_op(q, k, v,
-                                                        window=window)):
-                            fail(f"flash kernel: offset 0 differs from the "
-                                 f"call without one ({dt})")
-                        errs.check("flash", f"offset P={P} Tq={Tq} "
-                                   f"w={window} hd={hd} G={G} {dt}", got,
-                                   flash_attention_ref(q, k, v, window=window,
-                                                       q_offset=P), dt)
-                        n += 1
+        for B, Tq, P, H, KV, hd, window in cases:
+            q = rand(rng, (B, Tq, H, hd), dt, dev)
+            k = rand(rng, (B, P + Tq, KV, hd), dt, dev)
+            v = rand(rng, (B, P + Tq, KV, hd), dt, dev)
+            got = flash_attention_op(q, k, v, window=window, q_offset=P)
+            again = flash_attention_op(q, k, v, window=window, q_offset=P)
+            if not torch.equal(got, again):
+                fail(f"flash kernel: two launches with offset {P} differ "
+                     f"({dt})")
+            if P == 0 and not torch.equal(
+                    got, flash_attention_op(q, k, v, window=window)):
+                fail(f"flash kernel: offset 0 differs from the call without "
+                     f"one ({dt})")
+            errs.check("flash", f"offset B={B} P={P} Tq={Tq} H={H} KV={KV} "
+                       f"w={window} hd={hd} {dt}", got,
+                       flash_attention_ref(q, k, v, window=window,
+                                           q_offset=P), dt)
+            n += 1
     torch.cuda.synchronize()
     print(f"  flash attention: {n} offset cases within tolerance, offset 0 "
           f"bit-identical to no offset, max_abs_err={errs.max['flash']:.3e}")
@@ -877,7 +880,10 @@ def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
                                             enable_gqa=True), n=30)
     pairs = sum(min(P + i + 1, window) for i in range(T))
     ops = 4 * hd * pairs * B * H
-    nbytes = 2 * (2 * B * T * H * hd + 2 * B * Tk * KV * hd)
+    # key rows some query can see: the first query (position P) sees none
+    # below P - window + 1
+    k_lo = max(0, P - window + 1)
+    nbytes = 2 * (2 * B * T * H * hd + 2 * B * (Tk - k_lo) * KV * hd)
     t_ops, t_bytes = ops / TENSOR_BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -1047,6 +1053,21 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
                 peak_gib=peak, median_prefill_ms=prefill_ms)
 
 
+def timed_method(obj, name: str) -> list:
+    """Wrap ``obj.name`` so that each call's wall time, from its start to
+    ``torch.cuda.synchronize()`` after it, lands in the returned list."""
+    inner, times_us = getattr(obj, name), []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        times_us.append((time.perf_counter() - t0) * 1e6)
+        return out
+    setattr(obj, name, timed)
+    return times_us
+
+
 def shared_prefix_requests(cfg, n: int = MULTI["requests"]):
     """``n`` requests from ``RandomState(0)``: two shared 64-token prefixes,
     request i opening with prefix ``i % 2`` (round-robin routing sends it
@@ -1114,6 +1135,8 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
     for eng in me.engines:
         time_prefill_passes(eng, miss_us, hit_us)
     step_us: list = []
+    flush_us = timed_method(me, "_flush_window")
+    validate_us = timed_method(me, "validate")
     zero_launches()
     t0 = time.perf_counter()
     windows = me.serve(reqs, max_new_tokens=MULTI["new_tokens"],
@@ -1121,6 +1144,10 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    # the deployment's rate: every decode token over the serve's wall time
+    # (admission, prefill, engine-steps, window commits), less the I1-I6
+    # checks that only this smoke run makes
+    serve_s = wall - sum(validate_us) / 1e6
     check_multi_served(me, reqs, "4c")
     check_cache_used(me, "4c", alias=True)
     st, L = me.stats, cfg.num_layers
@@ -1131,12 +1158,14 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
         paged_decode_attention=st.decode_steps * L,
         flash_attention=passes * L))
     decode_tokens = sum(len(r.output) for r in reqs) - len(reqs)
-    tps = decode_tokens / (sum(step_us) / 1e6)
+    tps = decode_tokens / serve_s
+    med_step = statistics.median(step_us) / 1e3
     prompts = [r.prompt_len for r in reqs]
     print(f"  served {len(me.finished)}/{len(reqs)} requests (prompts "
           f"{min(prompts)}-{max(prompts)} tokens) on {me.n_engines} shards "
           f"in {windows} windows, {st.decode_steps} engine-steps, "
-          f"{wall:.2f}s wall, I1-I6 after every window; launches: support "
+          f"{wall:.2f}s wall ({sum(validate_us) / 1e6:.2f}s of it I1-I6 "
+          f"after every window); launches: support "
           f"core {launches['support_core_burst']} == {commits} engine "
           f"commits + {st.window_bursts} window commits, paged "
           f"{launches['paged_decode_attention']} == {st.decode_steps} "
@@ -1144,8 +1173,14 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
           f"{passes} prefill passes x {L}")
     print(f"  window commits {st.window_commits} live of {st.window_bursts}, "
           f"cross-engine burst occupancy "
-          f"{st.cross_engine_burst_occupancy:.3f}; decode {tps:.1f} "
-          f"tokens/s over {len(step_us)} engine-steps")
+          f"{st.cross_engine_burst_occupancy:.3f}")
+    print(f"  decode {tps:.1f} tokens/s ({decode_tokens} tokens over "
+          f"{serve_s:.3f}s of serving); of it engine-steps "
+          f"{sum(step_us) / 1e6:.3f}s ({len(step_us)}, median "
+          f"{med_step:.2f} ms), window commits {sum(flush_us) / 1e6:.4f}s "
+          f"({len(flush_us)}, median {statistics.median(flush_us) / 1e3:.3f}"
+          f" ms), the rest (admission, prefill, completions) "
+          f"{serve_s - (sum(step_us) + sum(flush_us)) / 1e6:.3f}s")
     for i, eng in enumerate(me.engines):
         s = eng.stats
         print(f"  e{i}: admitted {s.admitted}, cache hits {s.cache_hits} / "
@@ -1173,6 +1208,8 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
     del off
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps,
+                median_step_ms=med_step,
+                window_commit_ms=sum(flush_us) / 1e3,
                 window_commits=st.window_commits,
                 window_bursts=st.window_bursts,
                 occupancy=st.cross_engine_burst_occupancy,
@@ -1297,14 +1334,15 @@ def kernel_signature(name: str) -> str:
     return head.split("::")[-1] + sep + tail
 
 
-NO_SPILL = ("flash_mma_kernel", "support_core_burst_kernel")
+NO_SPILL = ("flash_mma_kernel", "flash_attention_kernel",
+            "support_core_burst_kernel")
 
 
 def print_ptxas(kernels) -> None:
     """Each kernel entry's registers, static shared memory and spills as
     ``-Xptxas -v`` printed them (demangled by the toolkit's ``cu++filt``
-    when it has one); fails when the support-core kernel or the
-    tensor-core flash kernel spills."""
+    when it has one); fails when the support-core kernel or either flash
+    kernel spills."""
     from repro_torch.kernels._build import _nvcc, ptxas_report
     filt = Path(_nvcc()).parent / "cu++filt"
     spills = []
@@ -1378,11 +1416,9 @@ def main() -> None:
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
-        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL),
-        "deepseek-7b offset 64": time_flash(dev, 4, 64, 32, 32, 128, FULL,
-                                            P=64),
-        "gemma3-1b local offset 1024": time_flash(dev, 4, 512, 4, 1, 256,
-                                                  512, P=1024)}
+        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL)}
+    for name, (T, P, *shape) in OFFSET_SHAPES.items():
+        t_flash[name] = time_flash(dev, 4, T, *shape, P=P)
 
     print("== 4. serve deepseek-7b at full width")
     cfg, params = full_width_params(dev, "deepseek-7b")

@@ -41,12 +41,10 @@ NAMESPACE_SEP = "/"
 
 class TenantHandle(NamedTuple):
     """A registered client of the support-core (one size class); its
-    ``capacity`` is its hard block quota.  ``size_class`` is a Python int,
-    or a 0-d int32 tensor inside a decode step shared by many shards
-    (:meth:`repro_torch.core.paged_kv.PagedTenants.with_class_ids`)."""
+    ``capacity`` is its hard block quota."""
 
     name: str
-    size_class: Union[int, torch.Tensor]
+    size_class: int
     capacity: int
 
     @property

@@ -127,28 +127,6 @@ class PagedTenants(NamedTuple):
     def handles(self) -> tuple:
         return tuple(t for t in (self.kv, self.scratch) if t is not None)
 
-    def class_id_array(self) -> torch.Tensor:
-        """``[len(handles)]`` int32 on the service's device: this set's
-        size-class ids in handle order, the data a shard passes to a decode
-        step shared by every shard."""
-        return torch.tensor([t.size_class for t in self.handles], dtype=I32,
-                            device=self.service.device)
-
-    def with_class_ids(self, class_ids: torch.Tensor) -> "PagedTenants":
-        """This set with each handle's ``size_class`` replaced by the
-        matching element of ``class_ids`` (:meth:`class_id_array`'s
-        layout), as 0-d tensors: the burst builder then takes the class
-        ids as data."""
-        fields: dict = {"service": self.service}
-        idx = 0
-        for name in ("kv", "scratch"):
-            t = getattr(self, name)
-            if t is not None:
-                t = t._replace(size_class=class_ids[idx])
-                idx += 1
-            fields[name] = t
-        return PagedTenants(**fields)
-
 
 def register_paged_tenants(svc: AllocService, cfg: PagedKVConfig,
                            namespace: str = "") -> PagedTenants:

@@ -12,9 +12,11 @@
 // of a tile: the ragged tail is masked (and its rows are zero-filled,
 // never loaded); and queries may start past key 0 (q_offset: a prefill of
 // an uncached suffix over a cached prefix, Tk = q_offset + Tq).  Every
-// reachability test below runs on absolute positions, so a q_offset that
-// is not a multiple of a tile moves the diagonal inside tiles; q_offset =
-// 0 computes exactly what the kernel computed without it.
+// reachability test compares query and key positions on one axis
+// (absolute in the tensor-core kernel, shifted by -q_offset in the
+// CUDA-core kernel), so a q_offset that is not a multiple of a tile moves
+// the diagonal inside tiles; q_offset = 0 computes exactly what the
+// kernel computed without it.
 //
 // Bound: operations.  4 * hd flops per reachable (q, k) pair and head
 // against ~2 * hd * 2 bytes per key row; at the prefill shapes the bf16
@@ -93,6 +95,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
+// Key positions here are relative to query row 0: key j sits at
+// j - q_offset, so row r and key j compare as in the kernel without an
+// offset.  `Tk` counts keys from there (the launcher passes the key count
+// less q_offset) and keys run from -q_offset; k and v start q_offset rows
+// into their slabs.  The offset then costs no register in the K loop.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -112,18 +119,18 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const long long q_rs = static_cast<long long>(H) * HD;
   const long long kv_rs = static_cast<long long>(KV) * HD;
   const T* qb = q + (static_cast<long long>(b) * Tq * H + h) * HD;
-  const T* kb = k + (static_cast<long long>(b) * Tk * KV + kvh) * HD;
-  const T* vb = v + (static_cast<long long>(b) * Tk * KV + kvh) * HD;
+  const long long kv_row0 =
+      static_cast<long long>(b) * (Tk + q_offset) + q_offset;
+  const T* kb = k + (kv_row0 * KV + kvh) * HD;
+  const T* vb = v + (kv_row0 * KV + kvh) * HD;
   T* ob = out + (static_cast<long long>(b) * Tq * H + h) * HD;
 
   load_tile<T, HD>(q_s, qb, q0, Tq, q_rs, scale);
 
-  // absolute positions: row r of the tile at q_offset + q0 + r
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const long long lo_w = static_cast<long long>(q_offset) + q0 - window + 1;
-  const int k_begin = lo_w > 0 ? static_cast<int>(lo_w) : 0;
-  const int k_end = causal ? min(Tk, q_offset + q_last + 1) : Tk;
-  const int qp0 = q_offset + q0 + ty;   // position of this thread's row 0
+  const long long lo_w = static_cast<long long>(q0) - window + 1;
+  const int k_begin = lo_w > -q_offset ? static_cast<int>(lo_w) : -q_offset;
+  const int k_end = causal ? min(Tk, q_last + 1) : Tk;
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -160,7 +167,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = qp0 + 16 * i;
+      const int qp = q0 + ty + 16 * i;
       bool valid[4];
       float mx = NEG_INF;
 #pragma unroll
@@ -210,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = blockIdx.x * BQ + ty + 16 * i;
+    const int r = q0 + ty + 16 * i;
     if (r >= Tq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -235,8 +242,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk, H, KV, causal,
-      window, q_offset,
+      static_cast<const T*>(v), static_cast<T*>(out), Tq, Tk - q_offset, H,
+      KV, causal, window, q_offset,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return static_cast<int>(cudaGetLastError());
 }

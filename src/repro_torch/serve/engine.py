@@ -10,8 +10,7 @@ launch of the support-core CUDA kernel.
 
 An engine can be one shard of a multi-engine deployment
 (:mod:`repro_torch.serve.multi_engine`): it then runs on a namespaced
-tenant set of a shared service (``tenants=``, ``alloc_state=``), steps
-through a decode function shared by every shard (``decode_fn=``), and
+tenant set of a shared service (``tenants=``, ``alloc_state=``) and
 with ``defer_refill`` hands its refills to the burst window
 (``pending_ops``).
 
@@ -183,8 +182,7 @@ class ServingEngine:
     ``device`` defaults to ``cuda`` (raising on a host without a card);
     ``params`` must live on the same device.  ``tenants`` installs a
     namespaced tenant set of a shared service and ``alloc_state`` that
-    service's one allocator state (a multi-engine shard); ``decode_fn`` a
-    decode step shared by every shard (it must match ``defer_refill``).
+    service's one allocator state (a multi-engine shard).
     ``eviction`` names the prefix cache's policy and ``prefix_alias`` its
     hit admission mode (the JAX package's defaults: ``lru``, ``copy``).
     """
@@ -199,8 +197,7 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  eviction: str = "lru",
                  cache_pages: Optional[int] = None,
-                 prefix_alias: str = "copy",
-                 decode_fn=None):
+                 prefix_alias: str = "copy"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kvcfg = kvcfg
@@ -232,10 +229,8 @@ class ServingEngine:
             paged=pkv.init_paged_kv(kvcfg, self.tenants, alloc=alloc_state),
             tokens=torch.zeros((kvcfg.max_lanes,), dtype=I32,
                                device=self.device))
-        self._class_ids = self.tenants.class_id_array()
-        self._decode = decode_fn if decode_fn is not None \
-            else make_decode_step(cfg, kvcfg, self.tenants,
-                                  defer_refill=defer_refill)
+        self._decode = make_decode_step(cfg, kvcfg, self.tenants,
+                                        defer_refill=defer_refill)
         self._prefill = make_family_prefill(cfg)
         self.stats = EngineStats()
 
@@ -534,11 +529,11 @@ class ServingEngine:
         multi-engine burst window."""
         if self.defer_refill:
             self.state, _logits, stats, pending = self._decode(
-                self.params, self.state, self._class_ids)
+                self.params, self.state)
             self.pending_ops.append(pending)
         else:
             self.state, _logits, stats = self._decode(
-                self.params, self.state, self._class_ids)
+                self.params, self.state)
         self.stats.decode_steps += 1
         scalars = torch.stack([stats.failed, stats.bursts, stats.stash_hits,
                                stats.stash_misses]).cpu().tolist()

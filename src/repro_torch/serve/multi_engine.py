@@ -54,7 +54,6 @@ from .engine import ServingEngine, run_admission
 from .router import Router, shard_load
 from .scheduler import (Request, Scheduler, SchedulerConfig,
                         make_scheduler_config)
-from .serve_step import make_decode_step
 
 I32 = torch.int32
 
@@ -85,8 +84,7 @@ class MultiEngine:
 
     ``quantum`` is the burst-window length in decode steps; ``quantum=1``
     gives the per-step commit cadence.  All shards share ``params`` (one
-    model on the device) and one decode step, which takes each shard's
-    class ids as data.  ``eviction`` and ``prefix_alias`` default to the
+    model on the device); each builds its own decode step.  ``eviction`` and ``prefix_alias`` default to the
     JAX package's ``lru`` and ``copy``.
     """
 
@@ -118,9 +116,6 @@ class MultiEngine:
                                                   namespace=f"e{i}")
                        for i in range(n_engines)]
         self.alloc = self.service.init_state()
-        # one decode step for every shard: the class ids are its data
-        shared_fn = make_decode_step(cfg, kvcfg, tenant_sets[0],
-                                     defer_refill=True)
         scfg = sched_cfg or make_scheduler_config(cfg, kvcfg)
         self.engines = [
             ServingEngine(cfg, kvcfg, params, sched_cfg=scfg,
@@ -128,7 +123,7 @@ class MultiEngine:
                           alloc_state=self.alloc, defer_refill=True,
                           prefix_cache=prefix_cache, eviction=eviction,
                           cache_pages=cache_pages,
-                          prefix_alias=prefix_alias, decode_fn=shared_fn)
+                          prefix_alias=prefix_alias)
             for ts in tenant_sets]
         self.scheds = [Scheduler(scfg) for _ in range(n_engines)]
         self.router = Router(router)

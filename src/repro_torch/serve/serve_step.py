@@ -6,11 +6,11 @@ attention kernel on the card) and ends with exactly ONE support-core burst
 (``decode_append``); the prefill's attention is the flash kernel on the
 card.
 
-All shards of a multi-engine deployment share one decode step: the step
-takes the shard's size-class ids as data (``class_ids``, a tensor), as the
-JAX package's tenant-agnostic step takes them as a traced operand.
-PyTorch runs eagerly, so there is no compiled executable to count: the
-JAX package's ``CountingJit`` and its ``decode_compiles`` /
+Each shard of a multi-engine deployment builds its own decode step from
+its own tenant set.  The JAX package shares one step across shards (class
+ids as a traced operand) so that they share one compiled executable;
+PyTorch runs eagerly and compiles nothing, so there is nothing to share:
+the JAX package's ``CountingJit`` and its ``decode_compiles`` /
 ``decode_compile_us`` counters have no counterpart here.
 """
 from __future__ import annotations
@@ -84,27 +84,21 @@ def init_serve_state(
 
 def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
                      tenants: PagedTenants, defer_refill: bool = False):
-    """Returns ``serve_step(params, state, class_ids=None) -> (state,
-    logits, DecodeStats)``, plus the step's
+    """Returns ``serve_step(params, state) -> (state, logits,
+    DecodeStats)``, plus the step's
     :class:`~repro_torch.core.paged_kv.PendingDecodeOps` with
     ``defer_refill``.
 
     The step's one allocator burst goes through ``tenants.service``: the
-    CUDA kernel when the state lives on the card.  ``class_ids``
-    (:meth:`~repro_torch.core.paged_kv.PagedTenants.class_id_array`) points
-    that burst at the calling shard's classes; ``tenants`` then gives only
-    the structure (which handles exist) and the service.
+    CUDA kernel when the state lives on the card.
     """
-    def serve_step(params: DenseLM, state: ServeState,
-                   class_ids: Optional[torch.Tensor] = None):
-        step_tenants = tenants if class_ids is None \
-            else tenants.with_class_ids(class_ids)
+    def serve_step(params: DenseLM, state: ServeState):
         hidden, (new_k, new_v) = decode_hidden(
             params, cfg, state.paged, state.tokens)
         logits = decode_logits(params, hidden)
         next_tokens = logits.argmax(dim=-1).to(I32)
         paged, *rest = decode_append(kvcfg, state.paged, new_k, new_v,
-                                     step_tenants, defer_refill=defer_refill)
+                                     tenants, defer_refill=defer_refill)
         return (ServeState(paged=paged, tokens=next_tokens), logits, *rest)
 
     return serve_step
