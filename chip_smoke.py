@@ -38,7 +38,16 @@ Phases, each failing loudly (non-zero exit, no result line):
                emergency burst) bit for bit; flash prefill over a cached
                prefix (query offsets 8-1200) in f32 and bf16, offset 0
                bit-identical to the call without one, and one offset
-               shape per architecture timed;
+               shape per architecture timed; the bitmap and buddy policies
+               (plain PyTorch on the card) against the same bursts on the
+               CPU, bit for bit: directed ``OP_MALLOC_RUN`` cases (an
+               aligned run, the fallback to singles, split and merge
+               counts), a 50-burst random trace, the gated all-NOP burst
+               and the card-sized pool's decode burst; no burst of any
+               policy and no staged commit synchronises with the host
+               (``torch.cuda.set_sync_debug_mode``); each timed at the
+               serve's shape and the pool's, beside the free-list kernel
+               on the same burst;
 4.  serve    -- deepseek-7b at its published widths (bf16, random weights
                from a seeded generator) serves 8 synthetic requests through
                the port's scheduler and engine: every support-core burst,
@@ -62,15 +71,37 @@ Phases, each failing loudly (non-zero exit, no result line):
                tokens/s, the median prefill pass with and without a hit,
                and how many tokens differ from the cache-off run (printed,
                not gated: bf16 products of other shapes round otherwise);
+4d. open     -- phase 4c's deployment under the buddy policy, driven open
+               loop: 24 requests from ``build_workload`` (Poisson, 0.5 per
+               decode step, seed 0; prompts bounded-Pareto alpha 2 in 8-48
+               tokens, outputs alpha 1.5 in 2-24, half on one 16-token
+               shared prefix, a quarter at priority 1), every shard
+               compacted after every second window, the allocator-op trace
+               recorded; fails on a stranded request, on I1-I6 after any
+               window (checked on host snapshots after the run), unless
+               every decode and prefill attention is a kernel launch and
+               the support core none, unless each shard's mean run length
+               exceeds 1 and its last occupancy is its cache's residue;
+               prints TTFT and TPOT percentiles, requests/s, queue depth,
+               the compaction moves and a pass's fragmentation report;
+4e. replay   -- 4d's tracefile replayed with no model under each policy on
+               the card and on the CPU: final states bit-identical, the
+               buddy replay's counters the live run's, every free-list
+               burst a kernel launch; prints each replay's wall time and
+               bursts/s;
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
                through the port on ``cuda`` and on ``cpu``, for both
                architectures: allocator state and served tokens must be
                identical; then two shards with the cache on (alias mode
                for deepseek-7b, copy for gemma3-1b) on both devices:
                identical tokens and shared allocator state, and tokens
-               equal to the cache-off run's;
-6.  result   -- one JSON line describing the kernels, then the last line
-               ``{"ok": true, "device": {...}}``.
+               equal to the cache-off run's; then the same two shards under
+               the bitmap and under the buddy policy, stepped window by
+               window on both devices with one compaction pass after the
+               second window: the shared allocator state identical after
+               every window, and tokens equal to the free-list run's;
+6.  result   -- the card's line again, one JSON line describing the
+               kernels, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -543,6 +574,194 @@ def launch_floor_ms() -> float:
     ms = device_ms(one.zero_)
     print(f"  launch floor: {ms * 1e3:.2f} us (a one-element fill)")
     return ms
+
+
+# --------------------------------------------------------------------------
+# phase 3, the bitmap and buddy policies: the card against the CPU
+# --------------------------------------------------------------------------
+
+PLAIN_POLICIES = ("bitmap", "buddy")
+
+
+def to_cpu(x):
+    """A state or queue (a NamedTuple of tensors) copied to the CPU."""
+    return type(x)(*[t.cpu() for t in x])
+
+
+class PolicyParity:
+    """Runs a plain policy's burst on the card and on the CPU from the same
+    state and requires every output to be identical."""
+
+    def __init__(self, policy: str):
+        from repro_torch.alloc import get_policy
+        self.policy = get_policy(policy)
+        self.bursts = 0
+
+    def step(self, state, queue, R, gated=False):
+        from repro_torch.core.hmq import schedule
+        return self.step_scheduled(state, schedule(queue)[0], R, gated)
+
+    def step_scheduled(self, state, sched, R, gated=False):
+        got = self.policy.step_scheduled(state, sched, R, gated=gated)
+        want = self.policy.step_scheduled(to_cpu(state), to_cpu(sched), R,
+                                          gated=gated)
+        names = list(state._fields) + ["blocks", "ok"]
+        for name, a, b in zip(names, [*got[0], got[1], got[2]],
+                              [*want[0], want[1], want[2]]):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{self.policy.name}: card != cpu on {name} (burst "
+                     f"{self.bursts}, Q={sched.capacity} "
+                     f"C={state.num_classes} N={state.max_capacity} R={R} "
+                     f"gated={gated})")
+        self.bursts += 1
+        return got[0]
+
+
+def policy_parity(dev) -> dict:
+    """Phase 3 for the bitmap and buddy policies (plain PyTorch on the
+    card): directed ``OP_MALLOC_RUN`` cases, a 50-burst random trace at the
+    serving classes, the gated all-NOP burst and the card-sized gemma3-1b
+    pool's decode burst, each on the card and on the CPU, bit for bit.
+    Returns the bursts checked per policy."""
+    from repro_torch.alloc import get_policy
+    from repro_torch.core.freelist import init_freelist, validate_freelist
+    from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC_RUN,
+                                          OP_NOP, make_queue)
+    checked = {}
+    pool = card_pool(dev, 35840)
+    pool_decode = pool_bursts(dev, pool)["decode"][0]
+    for name in PLAIN_POLICIES:
+        par = PolicyParity(name)
+
+        def q(*rows):
+            return make_queue(*zip(*rows), device=dev)
+
+        # directed: a run of 3 takes the aligned 4 at 0, a run of 2 the
+        # aligned 2 at 4; a run of 8 the 8 at 8; holes at 8, 10, 12, 14 and
+        # 1 leave no aligned 4, so a run of 3 falls back to singles; then
+        # every lane releases
+        state = get_policy(name).init([16], dev)
+        state = par.step(state, q((OP_MALLOC_RUN, 0, 0, 3),
+                                  (OP_MALLOC_RUN, 1, 0, 2)), 4)
+        state = par.step(state, q((OP_MALLOC_RUN, 2, 0, 8)), 8)
+        state = par.step(state, q(*[(OP_FREE, 2, 0, b)
+                                    for b in (8, 10, 12, 14)],
+                                  (OP_FREE, 0, 0, 1)), 1)
+        state = par.step(state, q((OP_MALLOC_RUN, 3, 0, 3)), 4)
+        lane3 = np.flatnonzero(state.owner[0].cpu().numpy() == 3).tolist()
+        state = par.step(state, q(*[(OP_FREE, lane, 0, FREE_ALL)
+                                    for lane in range(4)]), 1)
+        validate_freelist(state)
+        # buddy kept its runs aligned (4-5 at the 2-run, 8-15 at the
+        # 8-run); first fit packed them from 0 (3-4, then 5-12)
+        want3 = [1, 3, 6] if name == "buddy" else [1, 8, 10]
+        if lane3 != want3:
+            fail(f"{name}: the fallback run of 3 took {lane3}, expected "
+                 f"{want3}")
+        splits, merges = int(state.split_count[0]), int(state.merge_count[0])
+        if name == "buddy" and not (splits > 7 and merges > 0):
+            fail(f"buddy: split/merge counts {splits}/{merges}")
+        if name == "bitmap" and (splits or merges):
+            fail(f"bitmap: split/merge counts {splits}/{merges}, expected 0")
+
+        # 50 bursts at the serving classes, state carried
+        rng = np.random.RandomState(21)
+        state = get_policy(name).init([512, SERVE_LANES], dev)
+        for _ in range(50):
+            Q = int(rng.choice([8, 12, 24]))
+            R = int(rng.choice([1, 7, 16]))
+            state = par.step(state, random_queue(rng, Q, 2, 512, R, dev,
+                                                 lanes=SERVE_LANES), R,
+                             gated=bool(rng.rand() < 0.5))
+            validate_freelist(state)
+
+        # the gate: an all-NOP burst leaves a state whose stack is not the
+        # bitmap's order (a free-list state) bit-identical
+        state = init_freelist([5, 3], device=dev)
+        state = get_policy("freelist").step_scheduled(
+            state, make_queue([1, 1], [0, 1], [0, 1], [2, 1],
+                              device=dev), 2)[0]
+        nop = make_queue([OP_NOP] * 4, [0] * 4, [0] * 4, [0] * 4, device=dev)
+        kept = par.step(state, nop, 2, gated=True)
+        if not all(torch.equal(a, b) for a, b in zip(kept, state)):
+            fail(f"{name}: the gated all-NOP burst changed the state")
+
+        # one burst on the card-sized gemma3-1b pool (as decode gates it)
+        par.step_scheduled(pool, pool_decode, 8, gated=True)
+        checked[name] = par.bursts
+        print(f"  {name}: {par.bursts} bursts card == cpu bit for bit "
+              f"(directed runs: fallback singles {lane3}, split/merge "
+              f"{splits}/{merges}; 50-burst trace at [512, {SERVE_LANES}]; "
+              f"gated all-NOP; pool [35840, {POOL_LANES}] decode burst "
+              f"Q={pool_decode.capacity})")
+    return checked
+
+
+def check_no_sync(dev) -> None:
+    """No burst of any policy, and no commit of ops staged through the
+    builder, synchronises the host with the card
+    (``torch.cuda.set_sync_debug_mode("error")``, which PyTorch calls a
+    prototype that does not catch every synchronising op)."""
+    from repro_torch.alloc import AllocService, get_policy
+    state, sched, R, _ = serve_burst(dev)
+    lanes = torch.arange(SERVE_LANES, dtype=torch.int32, device=dev)
+    for name in ("freelist", *PLAIN_POLICIES):
+        svc = AllocService(policy=name, device=dev)
+        kv = svc.register_tenant("kv_pages", 512)
+        svc.register_tenant("scratch", SERVE_LANES)
+        fresh = svc.init_state()
+
+        def burst():
+            b = svc.new_burst()
+            b.malloc_run(kv, lanes, 3)
+            b.refill(kv, lanes, 2, where=lanes < 2)
+            b.free_all(kv, lanes, where=lanes == 3)
+            svc.commit(fresh, b, max_blocks_per_req=3, gated=True)
+            get_policy(name).step_scheduled(state, sched, R, gated=True)
+
+        burst()                                   # warm, outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            burst()
+        except RuntimeError as err:
+            fail(f"{name}: a burst synchronised with the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print(f"  no host sync in a burst or a staged commit under freelist, "
+          f"{', '.join(PLAIN_POLICIES)}")
+
+
+def time_policies(dev) -> dict:
+    """Each plain policy's burst on the card at the serve's shape and at the
+    card-sized pool's decode burst, beside the free-list kernel on the same
+    burst (CUDA-event medians, :func:`device_ms`)."""
+    from repro_torch.alloc import get_policy
+    from repro_torch.kernels.support_core.ops import support_core_burst
+    state, sched, R, gated = serve_burst(dev)
+    pool = card_pool(dev, 35840)
+    pool_sched = pool_bursts(dev, pool)["decode"][0]
+    shapes = {"serve": (state, sched, R, gated),
+              "pool_decode": (pool, pool_sched, 8, True)}
+    out = {}
+    for shape, (st, sc, r, g) in shapes.items():
+        (C, N), Q = st.free_stack.shape, sc.capacity
+        n = 100 if Q <= 64 else 5
+        row = {"Q": Q, "C": C, "N": N, "R": r, "gated": g,
+               "freelist_kernel_ms": device_ms(
+                   lambda: support_core_burst(st, sc, r, gated=g), n=n)}
+        for name in PLAIN_POLICIES:
+            pol = get_policy(name)
+            row[f"{name}_ms"] = device_ms(
+                lambda: pol.step_scheduled(st, sc, r, gated=g),
+                n=n if name == "bitmap" else min(n, 20 if Q <= 64 else 3))
+        out[shape] = row
+        print(f"  time {shape} Q={Q} C={C} N={N} R={r} gated={g}: bitmap "
+              f"{row['bitmap_ms'] * 1e3:.1f} us, buddy "
+              f"{row['buddy_ms'] * 1e3:.1f} us (plain PyTorch; buddy places "
+              f"its {Q} rows one after another), free-list kernel "
+              f"{row['freelist_kernel_ms'] * 1e3:.2f} us")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1081,10 +1300,11 @@ def shared_prefix_requests(cfg, n: int = MULTI["requests"]):
         .astype(np.int32)) for i in range(n)]
 
 
-def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool):
-    """Two shards of ``SERVE_LANES`` lanes on one service, burst windows of
-    ``MULTI["quantum"]`` steps, round robin, preemption on, per-shard
-    prefix caches (LRU) in alias or copy mode."""
+def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool,
+                 policy: str = "freelist"):
+    """Two shards of ``SERVE_LANES`` lanes on one service running
+    ``policy``, burst windows of ``MULTI["quantum"]`` steps, round robin,
+    preemption on, per-shard prefix caches (LRU) in alias or copy mode."""
     from repro_torch.models import make_paged_config
     from repro_torch.serve.multi_engine import MultiEngine
     from repro_torch.serve.scheduler import make_scheduler_config
@@ -1096,7 +1316,8 @@ def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool):
                        sched_cfg=scfg, quantum=MULTI["quantum"],
                        preemption=True, router="round_robin",
                        prefix_cache=prefix_cache, eviction="lru",
-                       prefix_alias="alias" if alias else "copy", device=dev)
+                       prefix_alias="alias" if alias else "copy", device=dev,
+                       alloc_policy=policy)
 
 
 def check_multi_served(me, reqs, what: str) -> None:
@@ -1217,6 +1438,209 @@ def serve_multi_full_width(dev, cfg, params) -> dict:
                 median_prefill_miss_ms=med["miss"], differing_tokens=diff)
 
 
+# phase 4d: open-loop traffic, the reference LoadgenSpec's lengths with a
+# 24-token output cap, on phase 4c's deployment under the buddy policy
+OPEN_LOOP = dict(
+    policy="buddy", compact_every=2,
+    spec=dict(n_requests=24, arrival="poisson", rate=0.5, prompt_alpha=2.0,
+              prompt_min=8, prompt_cap=48, output_alpha=1.5, output_min=2,
+              output_cap=24, shared_prefix_frac=0.5, shared_prefix_tokens=16,
+              priority_frac=0.25, seed=0))
+TRACE_PATH = ROOT / "build" / "open_loop.trc"
+
+
+class CacheBlocks:
+    """A prefix cache's block list as it stood at a window's end (the part
+    of a :class:`PrefixCache` that the I5/I6 check reads)."""
+
+    def __init__(self, blocks):
+        self._blocks = blocks
+
+    def blocks(self):
+        return self._blocks
+
+
+def snapshot(me) -> list:
+    """Host copies of what I1-I6 read after a window, per shard: the shared
+    allocator state, the shard's tables and stash, its cache's blocks."""
+    alloc = to_cpu(me.alloc)
+    out = []
+    for eng in me.engines:
+        p = eng.state.paged
+        out.append((p._replace(
+            alloc=alloc, block_tables=p.block_tables.cpu(),
+            seq_lens=p.seq_lens.cpu(), active=p.active.cpu(),
+            stash=to_cpu(p.stash), scratch_slot=p.scratch_slot.cpu(),
+            k_pages=None, v_pages=None),
+            eng.tenants, CacheBlocks(eng.cache.blocks())))
+    return out
+
+
+def open_loop_full_width(dev, cfg, params) -> dict:
+    """Phase 4d: the slice's path at full width -- open-loop arrivals on two
+    shards under the buddy policy, a compaction pass every two windows, the
+    allocator-op trace recorded.  I1-I6 are checked on host snapshots taken
+    after every window, once the run is over, so the check's own time
+    stays out of the latencies.  Returns the run's launches and numbers."""
+    from repro_torch.core.paged_kv import validate_paged_kv
+    from repro_torch.loadgen import (LoadgenSpec, build_workload,
+                                     certify_complete, record_service,
+                                     run_open_loop, save_trace)
+    me = multi_engine(cfg, params, torch.bfloat16, dev, True, True,
+                      policy=OPEN_LOOP["policy"])
+    timed = build_workload(LoadgenSpec(**OPEN_LOOP["spec"]), cfg.vocab_size)
+    snaps, moves, frag = [], [], {}
+    inner = me.step_window
+
+    def window():
+        progressed = inner()
+        if me.stats.windows % OPEN_LOOP["compact_every"] == 0:
+            before = [e.fragmentation_report() for e in me.engines]
+            moved = me.compact()
+            moves.append(moved)
+            if max(moved) > frag.get("moved", 0):
+                i = int(np.argmax(moved))
+                kv = me.engines[i].tenants.kv.name
+                frag.update(shard=i, moved=moved[i], before=before[i][kv],
+                            after=me.engines[i].fragmentation_report()[kv])
+        snaps.append(snapshot(me))
+        return progressed
+
+    me.step_window = window
+    rec = record_service(me.service)
+    zero_launches()
+    rep = run_open_loop(me, timed)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    me.service.recorder = None
+    trace = certify_complete(rec.finish(), me.engines,
+                             me.stats.window_bursts)
+    TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    save_trace(trace, TRACE_PATH)
+
+    if rep.stranded or rep.failed or rep.completed != len(timed):
+        fail(f"4d: completed {rep.completed}/{len(timed)}, failed "
+             f"{rep.failed}, stranded {rep.stranded}")
+    for w, snap in enumerate(snaps):
+        for state, tenants, cache in snap:
+            try:
+                validate_paged_kv(me.kvcfg, state, tenants, cache=cache)
+            except AssertionError as err:
+                fail(f"4d: I1-I6 after window {w + 1}: {err}")
+    st, L = me.stats, cfg.num_layers
+    passes = sum(e.stats.prefill_passes for e in me.engines)
+    want = dict(support_core_burst=0,
+                paged_decode_attention=st.decode_steps * L,
+                flash_attention=passes * L)
+    if launches != want:
+        fail(f"4d: launches {launches}, expected {want} (the buddy policy "
+             f"runs plain, so no support-core kernel launch)")
+    for i, eng in enumerate(me.engines):
+        s = eng.stats
+        used = eng.tenant_report()[eng.tenants.kv.name]["used"]
+        if not s.mean_run_len > 1:
+            fail(f"4d: shard {i} mean run length {s.mean_run_len}")
+        if used != s.cache_pages or eng.cache.pinned:
+            fail(f"4d: shard {i} holds {used} pages at the end, its cache "
+                 f"{s.cache_pages} ({eng.cache.pinned} pinned)")
+    total_moves = sum(map(sum, moves))
+    prompts = [r.prompt_len for _, r in timed]
+    outs = [r.max_new_tokens for _, r in timed]
+    print(f"  {len(timed)} requests (prompts {min(prompts)}-{max(prompts)} "
+          f"tokens, outputs {min(outs)}-{max(outs)}, "
+          f"{sum(r.priority for _, r in timed)} at priority 1), Poisson "
+          f"{OPEN_LOOP['spec']['rate']} per step: completed {rep.completed}, "
+          f"failed {rep.failed}, stranded {rep.stranded} in {rep.windows} "
+          f"windows, {rep.decode_steps} engine-steps, {rep.wall_s:.2f}s "
+          f"wall; I1-I6 held after all {len(snaps)} windows")
+    print(f"  TTFT p50 {rep.p50_ttft_us:.0f} us, p90 {rep.p90_ttft_us:.0f} "
+          f"us, p99 {rep.p99_ttft_us:.0f} us (p50 {rep.p50_ttft_steps:.2f}, "
+          f"p99 {rep.p99_ttft_steps:.2f} steps); TPOT p50 "
+          f"{rep.p50_tpot_us:.0f} us, p99 {rep.p99_tpot_us:.0f} us; "
+          f"{rep.requests_per_s:.3f} requests/s; queue depth mean "
+          f"{rep.queue_depth_mean:.2f}, max {rep.queue_depth_max}")
+    print(f"  launches: support core {launches['support_core_burst']} "
+          f"(buddy is plain), paged {launches['paged_decode_attention']} == "
+          f"{st.decode_steps} engine-steps x {L}, flash "
+          f"{launches['flash_attention']} == {passes} prefill passes x {L}; "
+          f"preemptions {st.preemptions}, live window commits "
+          f"{st.window_commits} of {st.window_bursts}")
+    print(f"  compaction: {len(moves)} passes, {total_moves} pages moved "
+          f"({moves})")
+    if frag:
+        keys = ("free", "free_extents", "largest_free_run",
+                "largest_aligned_run", "external_frag")
+        print(f"  fragmentation of shard {frag['shard']}'s kv_pages around "
+              f"the pass that moved most ({frag['moved']} pages): before "
+              f"{json.dumps({k: frag['before'][k] for k in keys})}, after "
+              f"{json.dumps({k: frag['after'][k] for k in keys})}")
+    for i, eng in enumerate(me.engines):
+        s = eng.stats
+        print(f"  e{i}: mean_run_len {s.mean_run_len:.3f} "
+              f"({s.extent_pages} pages in {s.contiguous_extents} extents), "
+              f"cache hits {s.cache_hits} / misses {s.cache_misses}, aliased "
+              f"pages {s.aliased_pages}, preemptions {s.preemptions}, "
+              f"splits/merges "
+              f"{eng.fragmentation_report()[eng.tenants.kv.name]['split_count']}"
+              f"/{eng.fragmentation_report()[eng.tenants.kv.name]['merge_count']}")
+    print(f"  trace: {trace.bursts} bursts ({trace.live_bursts} live, "
+          f"{trace.ops} ops), {trace.windows} windows, "
+          f"{sum(ev[0] == 'retag' for ev in trace.events)} retags, "
+          f"{sum(ev[0] == 'bump' for ev in trace.events)} bumps -> "
+          f"{TRACE_PATH.relative_to(ROOT)} ({TRACE_PATH.stat().st_size} "
+          f"bytes), complete")
+    live = me.service.tenant_report(me.alloc)
+    result = dict(
+        launches=launches, report=rep.as_metrics(),
+        mean_run_len=[e.stats.mean_run_len for e in me.engines],
+        compaction_moves=total_moves, compaction_passes=len(moves),
+        fragmentation=frag, trace_bursts=trace.bursts, live=live)
+    del me
+    torch.cuda.empty_cache()
+    return result
+
+
+def replay_full_width(dev, live: dict) -> dict:
+    """Phase 4e: 4d's tracefile replayed with no model, under each policy,
+    on the card and on the CPU: final states bit-identical; under the
+    recorded policy (buddy) the live run's counters exactly; under the free
+    list every burst one support-core kernel launch."""
+    from repro_torch.loadgen import load_trace, replay_trace
+    trace = load_trace(TRACE_PATH)
+    out = {}
+    for policy in ("buddy", "freelist", "bitmap"):
+        zero_launches()
+        res = replay_trace(trace, policy=policy, device=dev)
+        launches = read_launches()["support_core_burst"]
+        cpu = replay_trace(trace, policy=policy, device="cpu")
+        for field in res.state._fields:
+            if not torch.equal(getattr(res.state, field).cpu(),
+                               getattr(cpu.state, field)):
+                fail(f"4e: {policy} replay, {field} differs between the "
+                     f"card and the cpu")
+        if res.report != cpu.report:
+            fail(f"4e: {policy} replay counters differ between card and cpu")
+        if policy == trace.header["policy"] and res.report != live:
+            fail(f"4e: the {policy} replay's counters {res.report} are not "
+                 f"the live run's {live}")
+        want = res.bursts if policy == "freelist" else 0
+        if launches != want:
+            fail(f"4e: {policy} replay made {launches} support-core "
+                 f"launches, expected {want}")
+        rate = res.bursts / res.wall_s
+        same = res.report == live
+        print(f"  replay under {policy} on the card: {res.bursts} bursts "
+              f"({res.live_bursts} live, {res.ops} ops) in "
+              f"{res.wall_s * 1e3:.1f} ms = {rate:.0f} bursts/s "
+              f"(cpu {cpu.wall_s * 1e3:.1f} ms), {launches} kernel launches; "
+              f"final state card == cpu; counters "
+              f"{'equal' if same else 'differ from'} the live run's")
+        out[policy] = dict(wall_s=res.wall_s, bursts=res.bursts,
+                           bursts_per_s=rate, cpu_wall_s=cpu.wall_s,
+                           launches=launches, counters_equal_live=same)
+    return out
+
+
 def top2_margin(cfg, params_cpu, tokens) -> float:
     from repro_torch.models.transformer import forward
     logits = forward(params_cpu, torch.as_tensor(tokens)[None])[0, -1]
@@ -1317,6 +1741,61 @@ def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
           f"windows ({hits} hits, {mg.stats.window_commits} live window "
           f"commits), shared allocator state bit-identical; tokens equal the "
           f"cache-off run's")
+    policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, og)
+
+
+def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
+                         want: dict) -> None:
+    """Phase 5 under the bitmap and buddy policies: two shards with the
+    cache on, stepped window by window on the card and on the CPU, one
+    compaction pass after the second window: the shared allocator state
+    identical after every window, the same pages moved, and tokens
+    identical between the devices and to the free-list run's ``want``."""
+    alias = cfg.attn_pattern == "full"
+    for policy in PLAIN_POLICIES:
+        runs = {}
+        for name, p, d in (("cuda", params_gpu, dev),
+                           ("cpu", params_cpu, "cpu")):
+            reqs = shared_prefix_requests(cfg, MULTI["small_requests"])
+            me = multi_engine(cfg, p, torch.float32, d, True, alias,
+                              policy=policy)
+            me.submit(reqs, max_new_tokens=MULTI["new_tokens"])
+            runs[name] = (me, reqs)
+        (mg, rg), (mc, rc) = runs["cuda"], runs["cpu"]
+        windows, moved = 0, None
+        while mg.has_work or mc.has_work:
+            progress = (mg.step_window(validate=True),
+                        mc.step_window(validate=True))
+            windows += 1
+            if progress != (True, True):
+                fail(f"{arch} {policy}: window {windows} progressed "
+                     f"{progress} (cuda, cpu)")
+            if windows == 2:
+                moved = (mg.compact(), mc.compact())
+                if moved[0] != moved[1]:
+                    fail(f"{arch} {policy}: compaction moved {moved[0]} "
+                         f"pages on the card, {moved[1]} on the cpu")
+                mg.validate()
+            for field in mg.alloc._fields:
+                if not torch.equal(getattr(mg.alloc, field).cpu(),
+                                   getattr(mc.alloc, field)):
+                    fail(f"{arch} {policy}: shared allocator field {field} "
+                         f"differs between cuda and cpu after window "
+                         f"{windows}")
+        for me, reqs in runs.values():
+            check_multi_served(me, reqs, f"{arch} {policy}")
+        og = {r.rid: list(r.output) for r in rg}
+        if og != {r.rid: list(r.output) for r in rc}:
+            fail(f"{arch} {policy}: tokens differ between cuda and cpu")
+        if og != want:
+            fail(f"{arch} {policy}: tokens differ from the free-list run's")
+        runs_len = [e.stats.mean_run_len for e in mg.engines]
+        print(f"  {arch} two shards under {policy}: cuda and cpu agree on "
+              f"{sum(map(len, og.values()))} tokens and the shared "
+              f"allocator state after each of {windows} windows; "
+              f"compaction after window 2 moved {moved[0]} pages; tokens "
+              f"equal the free-list run's; mean run length "
+              f"{', '.join(f'{x:.2f}' for x in runs_len)}")
 
 
 def kernel_signature(name: str) -> str:
@@ -1399,6 +1878,10 @@ def main() -> None:
     t_burst = {name: time_burst(name, *case)
                for name, case in burst_cases(dev).items()}
     floor_ms = launch_floor_ms()
+    print("== 3. the bitmap and buddy policies: card against cpu")
+    pol_checked = policy_parity(dev)
+    check_no_sync(dev)
+    t_pol = time_policies(dev)
     errs = Errors()
     paged_parity(dev, errs)
     paged_split_parity(dev, errs)
@@ -1428,6 +1911,17 @@ def main() -> None:
           "full width, prefix caches in alias mode")
     served["deepseek-7b multi-engine"] = serve_multi_full_width(dev, cfg,
                                                                 params)
+    print("== 4d. open loop: Poisson arrivals on two shards under the buddy "
+          "policy, deepseek-7b at full width, compaction every two windows, "
+          "the allocator-op trace recorded")
+    served["deepseek-7b open loop"] = open_loop_full_width(dev, cfg, params)
+    print("== 4e. the open loop's trace replayed with no model, under each "
+          "policy, on the card and on the cpu")
+    replayed = replay_full_width(dev,
+                                 served["deepseek-7b open loop"].pop("live"))
+    served["replay freelist"] = dict(launches=dict(
+        support_core_burst=replayed["freelist"]["launches"],
+        paged_decode_attention=0, flash_attention=0))
     del params
     torch.cuda.empty_cache()
     print("== 4b. serve gemma3-1b at full width")
@@ -1441,6 +1935,7 @@ def main() -> None:
         device_vs_cpu(dev, arch)
 
     print("== 6. result")
+    print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):
         by_run = {a: s["launches"][name] for a, s in served.items()}
@@ -1465,7 +1960,13 @@ def main() -> None:
              library_ms=None, launch_floor_ms=floor_ms,
              large_shape=t_burst["large"],
              pool_shapes={k: v for k, v in t_burst.items()
-                          if k.startswith("pool_")}),
+                          if k.startswith("pool_")},
+             plain_policies=dict(card_vs_cpu_bursts=pol_checked,
+                                 times=t_pol),
+             open_loop={k: v for k, v in
+                        served["deepseek-7b open loop"].items()
+                        if k != "launches"},
+             replay=replayed),
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/"
                     "paged_attention.cu",

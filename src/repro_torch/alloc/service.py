@@ -14,9 +14,14 @@ N engine shards register disjoint tenant sets under their own namespaces
 ``retag_blocks`` and ``bump_refcounts`` are the prefix cache's
 control-plane scatters (owner demotion, alias references): no burst.
 
-The policy step runs on the device of the state it is given: the CUDA
-kernel on the card, the plain PyTorch version on the CPU.  The allocator-op
-recorder of the JAX service waits for trace replay (ROADMAP.md, Queue 1).
+The policy step runs on the device of the state it is given: under the
+free list the CUDA kernel on the card, the plain PyTorch version on the
+CPU; the bitmap and buddy policies are plain PyTorch on either.
+
+``AllocService.recorder`` (:mod:`repro_torch.loadgen.trace`) sees every
+commit, retag and refcount bump in state-mutation order.  Every commit of
+the port is eager, so a recorded trace holds every state change; recording
+copies each committed queue to the host once.
 """
 from __future__ import annotations
 
@@ -26,11 +31,14 @@ import torch
 
 from ..core.freelist import FreeListState
 from ..core.hmq import schedule
+from ..core.scatter import set_drop
+from ..core.freelist import fragmentation_report
 from ..core.packets import (FREE_ALL, NO_BLOCK, OP_FREE, OP_MALLOC,
-                            OP_MALLOC_RUN, OP_NOP, OP_REFILL, RequestQueue)
+                            OP_MALLOC_RUN, OP_NOP, OP_REFILL, RequestQueue,
+                            ResponseQueue)
 from ..core.support_core import StepStats
 from ..device import DeviceLike, resolve_device
-from .policies import FreeListPolicy, get_policy
+from .policies import AllocatorPolicy, get_policy
 
 I32 = torch.int32
 
@@ -134,6 +142,9 @@ class BurstBuilder:
         return self._size
 
     def _vec(self, x) -> torch.Tensor:
+        if isinstance(x, int):
+            # a fill, not a host-to-device copy: a copy waits for the stream
+            return torch.full((), x, dtype=I32, device=self._service.device)
         return torch.as_tensor(x, dtype=I32, device=self._service.device)
 
     def _lane_vec(self, lane) -> torch.Tensor:
@@ -206,14 +217,20 @@ class BurstBuilder:
 class AllocService:
     """The support-core's client API: tenants in, tickets out.
 
-    ``device`` defaults to ``cuda`` and raises on a host without a card;
-    pass ``device="cpu"`` for the plain path.
+    ``policy`` names the central design (:data:`~repro_torch.alloc.policies
+    .ALLOC_POLICIES` or a registered one).  ``device`` defaults to ``cuda``
+    and raises on a host without a card; pass ``device="cpu"`` for the
+    plain path.
     """
 
     def __init__(self, policy: str = "freelist", device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.policy: FreeListPolicy = get_policy(policy)
+        self.policy: AllocatorPolicy = get_policy(policy)
         self._tenants: dict[str, TenantHandle] = {}
+        #: optional allocator-op recorder (``repro_torch.loadgen.trace``):
+        #: commit, retag_blocks and bump_refcounts report to it before they
+        #: change the state
+        self.recorder = None
 
     # ---------------- tenants ----------------
 
@@ -295,8 +312,12 @@ class AllocService:
                                  device=state.owner.device).reshape(-1)
         if not blocks.numel():
             return state
-        owner = state.owner.clone()
-        owner[tenant.size_class, blocks] = int(new_owner)
+        if self.recorder is not None:
+            self.recorder.on_retag(tenant.size_class, blocks, new_owner)
+        # ids past the class's width drop, as the JAX package's mode="drop"
+        owner = set_drop(state.owner, (torch.full_like(blocks,
+                                                       tenant.size_class),
+                                       blocks), int(new_owner))
         return state._replace(owner=owner)
 
     def bump_refcounts(self, state: FreeListState, tenant: TenantHandle,
@@ -309,6 +330,8 @@ class AllocService:
                                  device=state.refcount.device).reshape(-1)
         if not blocks.numel():
             return state
+        if self.recorder is not None:
+            self.recorder.on_bump(tenant.size_class, blocks, delta)
         row = state.refcount[tenant.size_class]
         add = torch.zeros((row.shape[0] + 1,), dtype=I32, device=row.device)
         add.index_add_(0, blocks.clamp(max=row.shape[0]),
@@ -333,6 +356,8 @@ class AllocService:
         """
         queue = burst.build_queue() if isinstance(burst, BurstBuilder) \
             else burst
+        if self.recorder is not None:
+            self.recorder.on_commit(queue, max_blocks_per_req)
         if self._tenants and state.num_classes != self.num_classes:
             raise ValueError(
                 f"allocator state carries {state.num_classes} size classes "
@@ -345,8 +370,8 @@ class AllocService:
         stats = BurstStats(
             core=core, per_tenant=per_tenant,
             queue_live=live.sum(dtype=I32),
-            queue_capacity=torch.tensor(queue.capacity, dtype=I32,
-                                        device=queue.op.device))
+            queue_capacity=torch.full((), queue.capacity, dtype=I32,
+                                      device=queue.op.device))
         return new_state, BurstResult(blocks=blocks, status=status,
                                       stats=stats, live=live.any().to(I32))
 
@@ -385,6 +410,16 @@ class AllocService:
         return (new_state, blocks[unperm], status_sched[unperm], core,
                 per_tenant)
 
+    def step(self, state: FreeListState, queue: RequestQueue,
+             max_blocks_per_req: int = 1,
+             ) -> tuple[FreeListState, ResponseQueue, BurstStats]:
+        """One raw-queue burst in the JAX package's historical
+        ``support_core_step`` return shape (the raw-queue bridge)."""
+        new_state, res = self.commit(state, queue,
+                                     max_blocks_per_req=max_blocks_per_req)
+        return new_state, ResponseQueue(blocks=res.blocks,
+                                        status=res.status), res.stats
+
     # ---------------- host-side reporting ----------------
 
     def tenant_report(self, state: FreeListState,
@@ -414,3 +449,15 @@ class AllocService:
             for k in keys:
                 d[k] += rep[k]
         return out
+
+    def fragmentation_report(self, state: FreeListState,
+                             tenants: Optional[Sequence[TenantHandle]] = None,
+                             ) -> dict[str, dict]:
+        """Per-tenant external-fragmentation snapshot (host side): free
+        pages, largest contiguous and aligned free run, ``external_frag``
+        and the buddy split/merge counters
+        (:func:`~repro_torch.core.freelist.fragmentation_report`); same
+        subset convention as :meth:`tenant_report`."""
+        full = fragmentation_report(state, tenant_names=self.tenant_names())
+        return {t.name: full[t.name]
+                for t in (self.tenants if tenants is None else tenants)}

@@ -276,3 +276,54 @@ def validate_freelist(
               f"{bad[:8].tolist()} carry refcount {got[bad[:8]].tolist()} "
               f"but their block-table + cache + stash references are "
               f"{expected[bad[:8]].tolist()}")
+
+
+def fragmentation_report(state: FreeListState,
+                         tenant_names: Sequence[str] | None = None,
+                         ) -> dict[str, dict]:
+    """Host-side external-fragmentation snapshot per class, the JAX
+    package's dict key for key.  The free set is read off the owner bitmap
+    (``owner < 0`` over real ids):
+
+    * ``free`` -- free blocks (== ``free_top`` by I3);
+    * ``free_extents`` -- maximal runs of consecutive free ids;
+    * ``largest_free_run`` -- the longest such run;
+    * ``largest_aligned_run`` -- the largest power-of-two run that is free
+      and aligned to its own size (what a strict buddy tree could grant);
+    * ``external_frag`` -- ``1 - largest_free_run / free`` (0 with nothing
+      free);
+    * ``split_count`` / ``merge_count`` -- the buddy counters of the state
+      (0 under the free list and the bitmap).
+    """
+    owner = _host(state.owner)
+    caps = _host(state.capacity)
+    splits = _host(state.split_count)
+    merges = _host(state.merge_count)
+    out = {}
+    for c in range(state.num_classes):
+        name = tenant_names[c] if tenant_names and c < len(tenant_names) \
+            else f"class{c}"
+        cap = int(caps[c])
+        free = owner[c, :cap] < 0
+        n_free = int(free.sum())
+        # run boundaries: +1 where a free run starts, -1 past where it ends
+        edges = np.diff(np.concatenate([[0], free.astype(np.int8), [0]]))
+        starts, ends = np.flatnonzero(edges == 1), np.flatnonzero(edges == -1)
+        lengths = ends - starts
+        aligned, size = 0, 1
+        while size <= cap:
+            runs = free[: cap - cap % size].reshape(-1, size)
+            if runs.all(axis=1).any():
+                aligned = size
+            size *= 2
+        longest = int(lengths.max(initial=0))
+        out[name] = {
+            "free": n_free,
+            "free_extents": int(len(starts)),
+            "largest_free_run": longest,
+            "largest_aligned_run": aligned,
+            "external_frag": (1.0 - longest / n_free) if n_free else 0.0,
+            "split_count": int(splits[c]),
+            "merge_count": int(merges[c]),
+        }
+    return out

@@ -43,6 +43,15 @@ class RequestQueue(NamedTuple):
         return self.op.shape[0]
 
 
+class ResponseQueue(NamedTuple):
+    """A burst's responses in caller order: ``blocks[i, j]`` is the j-th
+    block granted to request ``i`` (or ``NO_BLOCK``), ``status[i]`` is 1 on
+    full success."""
+
+    blocks: torch.Tensor   # [Q, R] int32
+    status: torch.Tensor   # [Q] int32
+
+
 def make_queue(ops, lanes, size_classes, args, capacity: int | None = None,
                device: torch.device | str = "cpu") -> RequestQueue:
     """Build a queue from python/array slot lists, padding with nops."""

@@ -28,10 +28,12 @@ window.  The prefix cache (:class:`PrefixCache`, host-side) keeps
 completed lanes' full pages under :data:`CACHE_OWNER`; a hit either copies
 the cached K/V into fresh pages or splices the cached page ids into the
 lane's block table with a refcount bump
-(``admit_prefill_many(prefix_blocks=)``).  This slice serves the dense
-family; the recurrent-state tenant, sliding-window recycling (and with it
-the overflow flushes that ``PendingDecodeOps`` carries) and compaction
-wait for later slices (ROADMAP.md, Queue 1).
+(``admit_prefill_many(prefix_blocks=)``).  :func:`compact_kv` repacks
+sole-owner lane pages between burst windows so the free space coalesces
+(:func:`extent_stats` counts the runs admission got).  This slice serves
+the dense family; the recurrent-state tenant and sliding-window recycling
+(and with it the overflow flushes that ``PendingDecodeOps`` carries) wait
+for later slices (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -143,11 +145,13 @@ def register_paged_tenants(svc: AllocService, cfg: PagedKVConfig,
                         scratch=by_base.get(SCRATCH_TENANT))
 
 
-def paged_tenants(cfg: PagedKVConfig, device: DeviceLike = None
-                  ) -> PagedTenants:
-    """A fresh service on ``device`` with this config's tenants registered
-    in class order: ``kv_pages`` (class 0), then ``scratch``."""
-    return register_paged_tenants(AllocService(device=device), cfg)
+def paged_tenants(cfg: PagedKVConfig, device: DeviceLike = None,
+                  policy: str = "freelist") -> PagedTenants:
+    """A fresh service on ``device`` running ``policy``, with this
+    config's tenants registered in class order: ``kv_pages`` (class 0),
+    then ``scratch``."""
+    return register_paged_tenants(AllocService(policy=policy, device=device),
+                                  cfg)
 
 
 def init_paged_kv(cfg: PagedKVConfig, tenants: PagedTenants,
@@ -808,6 +812,155 @@ def kv_pages_in_use(cfg: PagedKVConfig, state: PagedKVState) -> np.ndarray:
     in_use = np.zeros((cfg.num_pages,), bool)
     in_use[tbl[tbl != NO_BLOCK]] = True
     return in_use
+
+
+def extent_stats(block_tables, lanes=None) -> tuple[int, int]:
+    """Host-side ``(contiguous_extents, pages)`` over block-table rows.
+
+    An extent is a maximal run of consecutive page ids in one lane's row
+    (``NO_BLOCK`` entries are skipped), so ``pages / extents`` is the mean
+    run length: 1.0 when every page is an island, more when a run-aware
+    policy (buddy) granted admission contiguous runs.  ``lanes`` restricts
+    the count to those rows.
+    """
+    tbl = block_tables.cpu().numpy() if isinstance(block_tables,
+                                                   torch.Tensor) \
+        else np.asarray(block_tables)
+    if lanes is not None:
+        tbl = tbl[np.asarray(lanes)]
+    extents = pages = 0
+    for row in tbl:
+        held = row[row != NO_BLOCK]
+        if held.size == 0:
+            continue
+        pages += int(held.size)
+        extents += 1 + int(np.count_nonzero(np.diff(held) != 1))
+    return extents, pages
+
+
+def _run_score(ids) -> tuple[int, int]:
+    """``(largest run, -number of runs)`` of a set of ids: bigger is more
+    coalesced."""
+    best = run = extents = 0
+    prev = None
+    for f in sorted(ids):
+        if prev is None or f != prev + 1:
+            extents += 1
+            run = 0
+        run += 1
+        best = max(best, run)
+        prev = f
+    return best, -extents
+
+
+def compact_kv(cfg: PagedKVConfig, state: PagedKVState,
+               tenants: PagedTenants, max_moves: Optional[int] = None,
+               ) -> tuple[PagedKVState, int]:
+    """One KV compaction pass, run between burst windows (the JAX
+    package's ``compact_kv``, move for move).
+
+    Sole-owner lane pages (``refcount == 1`` and ``owner == lane``) slide
+    to one end of the page id space past the pages that never move: the
+    sink page ``num_pages``, aliased pages (refcount >= 2),
+    ``CACHE_OWNER`` residents and stash pages (outside the block tables).
+    The movable pages take the lowest (or highest) cells of the movable +
+    free id set; the pass keeps the direction that scores better on
+    (largest free run, fewest free runs) and is a no-op when neither beats
+    the current state.  ``max_moves`` keeps the moves nearest the packing
+    end.
+
+    Planned on the host from one read of the allocator rows and block
+    tables.  A move copies the page's K/V, rewrites the one block-table
+    slot naming it and moves its owner and refcount; moves may chain (a
+    vacated cell is another move's destination), so every source page is
+    gathered before any is written -- the pools are updated in place.
+    ``free_top``, ``used`` and the counters are unchanged, and the free
+    stack is rebuilt ascending.  The owner and refcount rows change through
+    ``retag_blocks`` and ``bump_refcounts``, so an allocator-op trace
+    carries the pass; the stack rebuild it does not carry, so a replay
+    matches the run after the pass only under the bitmap and buddy
+    policies (which rebuild the stack from the bitmap every burst).
+    Returns ``(new_state, pages_moved)``.
+    """
+    cls = tenants.kv.size_class
+    alloc = state.alloc
+    owner = alloc.owner[cls].cpu().numpy()
+    refc = alloc.refcount[cls].cpu().numpy()
+    top = int(alloc.free_top[cls])
+    stack = alloc.free_stack[cls].cpu().numpy()
+    tbl = state.block_tables.cpu().numpy()
+    free_ids = sorted(int(b) for b in stack[:top])
+    if not free_ids:
+        return state, 0
+
+    movable: dict[int, tuple[int, int]] = {}       # id -> (lane, slot)
+    for lane in range(tbl.shape[0]):
+        for slot, b in enumerate(tbl[lane]):
+            b = int(b)
+            if b != NO_BLOCK and owner[b] == lane and refc[b] == 1:
+                movable[b] = (lane, slot)
+    if not movable:
+        return state, 0
+
+    movable_ids = sorted(movable)
+    cells = sorted(set(movable_ids) | set(free_ids))
+    M = len(movable_ids)
+    cap = M if max_moves is None else min(max_moves, M)
+
+    def plan(direction: str):
+        targets = cells[:M] if direction == "low" else cells[-M:]
+        pairs = [(s, d) for s, d in zip(movable_ids, targets) if s != d]
+        if direction == "high":
+            pairs.reverse()            # keep the moves nearest the top end
+        pairs = pairs[:cap]
+        after = (set(free_ids) | {s for s, _ in pairs}) \
+            - {d for _, d in pairs}
+        return pairs, _run_score(after), after
+
+    lo, hi = plan("low"), plan("high")
+    pairs, score, free_after = lo if lo[1] >= hi[1] else hi
+    if score <= _run_score(free_ids) or not pairs:
+        return state, 0
+
+    src_np = np.asarray([s for s, _ in pairs], np.int64)
+    dst_np = np.asarray([d for _, d in pairs], np.int64)
+    dev = state.k_pages.device
+    src = torch.as_tensor(src_np, device=dev)
+    dst = torch.as_tensor(dst_np, device=dev)
+    for pool in (state.k_pages, state.v_pages):
+        pool[dst] = pool[src]          # the gather copies before the write
+
+    lanes_np = np.asarray([movable[s][0] for s, _ in pairs])
+    slots_np = np.asarray([movable[s][1] for s, _ in pairs])
+    tbl[lanes_np, slots_np] = dst_np
+
+    # dst inherits the page's identity from the pre-pass rows; only cells
+    # vacated and not refilled become free
+    own2, ref2 = owner.copy(), refc.copy()
+    own2[dst_np] = owner[src_np]
+    ref2[dst_np] = refc[src_np]
+    vacated = np.asarray(sorted(set(src_np.tolist()) - set(dst_np.tolist())),
+                         np.int64)
+    own2[vacated] = -1
+    ref2[vacated] = 0
+    # the owner and refcount rows change through the service's retag and
+    # refcount ops, so a trace recorder sees the pass as those events
+    svc, kv = tenants.service, tenants.kv
+    cells = np.flatnonzero(own2 != owner)
+    for new_owner in np.unique(own2[cells]):
+        alloc = svc.retag_blocks(alloc, kv, cells[own2[cells] == new_owner],
+                                 int(new_owner))
+    cells = np.flatnonzero(ref2 != refc)
+    delta = ref2[cells].astype(np.int64) - refc[cells]
+    for d in np.unique(delta):
+        alloc = svc.bump_refcounts(alloc, kv, cells[delta == d], int(d))
+    free_sorted = sorted(free_after)
+    stack[: len(free_sorted)] = np.asarray(free_sorted, np.int32)
+    free_stack = alloc.free_stack.clone()
+    free_stack[cls] = torch.as_tensor(stack, device=free_stack.device)
+    alloc = alloc._replace(free_stack=free_stack)
+    return state._replace(alloc=alloc, block_tables=torch.as_tensor(
+        tbl, device=state.block_tables.device)), len(pairs)
 
 
 def validate_paged_kv(cfg: PagedKVConfig, state: PagedKVState,

@@ -32,7 +32,12 @@ def _flat_index(shape: Sequence[int], idx: Sequence[torch.Tensor]
 
 def _scatter(target, idx, values, add: bool) -> torch.Tensor:
     flat = _flat_index(target.shape, idx)
-    vals = torch.as_tensor(values, dtype=target.dtype, device=target.device)
+    if isinstance(values, torch.Tensor):
+        vals = values.to(device=target.device, dtype=target.dtype)
+    else:
+        # a fill, not a host-to-device copy: a copy waits for the stream
+        vals = torch.full((), values, dtype=target.dtype,
+                          device=target.device)
     vals = vals.expand(flat.shape).reshape(-1)
     flat = flat.reshape(-1)
     buf = torch.cat([target.reshape(-1), target.new_zeros(1)])

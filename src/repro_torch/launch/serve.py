@@ -11,10 +11,18 @@ completed requests' pages (``--eviction``, ``--cache-pages``) and admits
 hits by copy or by alias (``--prefix-alias``).  ``--device`` picks
 ``cuda`` (default) or ``cpu`` in place of the JAX launcher's
 ``--alloc-backend``; the JAX launcher's environment knobs are flags with
-its defaults.  Prints allocator and scheduler telemetry.
+its defaults.  ``--alloc-policy`` picks the central allocator design.
+``--loadgen poisson|bursty|diurnal`` drives the multi-engine loop open
+loop instead (seeded arrivals by virtual time, ``--rate``,
+``--priority-frac``, ``--shared-prefix-frac``, ``--max-windows``) and
+reports time-to-first-token percentiles; ``--record-trace FILE`` writes
+the run's allocator-op trace for ``python -m repro_torch.launch.replay``.
+Prints allocator and scheduler telemetry.
 
     python -m repro_torch.launch.serve --arch deepseek-7b --device cpu \
         --engines 2 --prefix-cache on --prefix-alias alias
+    python -m repro_torch.launch.serve --arch deepseek-7b --device cpu \
+        --loadgen poisson --alloc-policy buddy --record-trace run.trc
 """
 from __future__ import annotations
 
@@ -25,7 +33,11 @@ import numpy as np
 import torch
 
 from ..alloc.eviction import EVICTION_POLICIES
+from ..alloc.policies import ALLOC_POLICIES
 from ..configs.base import ARCH_IDS, smoke_config
+from ..loadgen import (ARRIVAL_KINDS, LoadgenSpec, build_workload,
+                       certify_complete, record_service, run_open_loop,
+                       save_trace)
 from ..models import init_params, make_paged_config
 from ..serve.engine import ServingEngine, run_admission
 from ..serve.multi_engine import MultiEngine
@@ -103,7 +115,10 @@ def report(eng: ServingEngine, sched: Scheduler, steps: int) -> None:
         print(f"FAILED: {len(sched.failed)} request(s) rejected by the "
               f"allocator")
     print(f"served {len(sched.finished)} requests in {steps} decode steps on "
-          f"{eng.device} | stash={kvcfg.stash_size}/{kvcfg.stash_watermark}"
+          f"{eng.device} | policy={eng.alloc_policy} "
+          f"mean_run_len={s.mean_run_len:.2f} "
+          f"compactions={s.compactions}/{s.compaction_moves} moves | "
+          f"stash={kvcfg.stash_size}/{kvcfg.stash_watermark}"
           f"/{kvcfg.stash_refill} | allocs={int(a.alloc_count[kv])} "
           f"frees={int(a.free_count[kv])} fails={int(a.fail_count[kv])} "
           f"peak_pages={int(a.peak_used[kv])} live={eng.live_pages} | "
@@ -131,6 +146,66 @@ def report(eng: ServingEngine, sched: Scheduler, steps: int) -> None:
               f"frees={rep['free_count']} fails={rep['fail_count']} "
               f"(burst mallocs={acc.get('mallocs', 0)} "
               f"failed={acc.get('failed', 0)})")
+
+
+def shard_report(me: MultiEngine) -> None:
+    """Each shard's contiguity and fragmentation line: the policy's mean
+    admitted run length, the compaction counters and its KV class's
+    fragmentation report."""
+    for i, eng in enumerate(me.engines):
+        s = eng.stats
+        frag = eng.fragmentation_report()[eng.tenants.kv.name]
+        print(f"  e{i}: policy={eng.alloc_policy} "
+              f"mean_run_len={s.mean_run_len:.2f} "
+              f"compactions={s.compactions} "
+              f"compaction_moves={s.compaction_moves} "
+              f"external_frag={frag['external_frag']:.2f} "
+              f"largest_free_run={frag['largest_free_run']} "
+              f"free_extents={frag['free_extents']} "
+              f"splits={frag['split_count']} merges={frag['merge_count']}")
+
+
+def serve_loadgen(me: MultiEngine, cfg, args) -> None:
+    """The open-loop path: seeded arrivals submitted by virtual time, the
+    tail-latency report and, with ``--record-trace``, the allocator-op
+    trace of the run."""
+    if me.device.type == "cuda":
+        # build the kernels first: a request's TTFT should not hold nvcc
+        from ..kernels._build import build_all
+        from ..kernels.flash_attention.ops import FLASH_KERNEL
+        from ..kernels.paged_attention.ops import PAGED_KERNEL
+        from ..kernels.support_core.ops import KERNEL
+        build_all((KERNEL, PAGED_KERNEL, FLASH_KERNEL))
+    rec = record_service(me.service) if args.record_trace else None
+    spec = LoadgenSpec(n_requests=args.requests, arrival=args.loadgen,
+                       rate=args.rate, priority_frac=args.priority_frac,
+                       shared_prefix_frac=args.shared_prefix_frac,
+                       output_cap=args.max_new_tokens, seed=args.seed)
+    rep = run_open_loop(me, build_workload(spec, cfg.vocab_size),
+                        max_windows=args.max_windows, verbose=True)
+    print(f"open-loop {spec.arrival} rate={spec.rate}/step seed={spec.seed} "
+          f"on {me.device}: completed={rep.completed} failed={rep.failed} "
+          f"stranded={rep.stranded} in {rep.windows} windows "
+          f"({rep.decode_steps} engine-steps, {rep.wall_s:.2f}s)")
+    print(f"  TTFT p50={rep.p50_ttft_us / 1e3:.1f}ms "
+          f"p90={rep.p90_ttft_us / 1e3:.1f}ms "
+          f"p99={rep.p99_ttft_us / 1e3:.1f}ms (virtual: "
+          f"p50={rep.p50_ttft_steps:.1f} p99={rep.p99_ttft_steps:.1f} steps)")
+    print(f"  per-token p50={rep.p50_tpot_us / 1e3:.1f}ms "
+          f"p99={rep.p99_tpot_us / 1e3:.1f}ms | queue depth "
+          f"mean={rep.queue_depth_mean:.1f} max={rep.queue_depth_max} | "
+          f"{rep.requests_per_s:.2f} requests/s")
+    shard_report(me)
+    if rec is not None:
+        me.service.recorder = None
+        trace = certify_complete(rec.finish(), me.engines,
+                                 me.stats.window_bursts)
+        save_trace(trace, args.record_trace)
+        print(f"  trace: {trace.bursts} bursts ({trace.live_bursts} live, "
+              f"{trace.ops} ops) {trace.windows} windows -> "
+              f"{args.record_trace} complete={trace.header['complete']} "
+              f"(replay: python -m repro_torch.launch.replay "
+              f"{args.record_trace})")
 
 
 def serve_multi(me: MultiEngine, requests: list[Request],
@@ -164,6 +239,7 @@ def serve_multi(me: MultiEngine, requests: list[Request],
               f"stash_hit_rate={s.stash_hit_rate:.2f} "
               f"decode_bursts/1k={s.hmq_bursts_per_1k_decode_steps:.0f}"
               f"{cache}")
+    shard_report(me)
     print("cross-engine tenant rollup (one shared AllocService):")
     for name, d in me.tenant_rollup().items():
         print(f"  {name}: engines={d['engines']} used={d['used']}/"
@@ -212,8 +288,32 @@ def main(argv=None) -> None:
                     help="hit admission: 'copy' writes the cached K/V into "
                          "fresh lane pages, 'alias' splices the cached pages "
                          "into the lane's block table (full attention only)")
+    ap.add_argument("--alloc-policy", default="freelist",
+                    choices=list(ALLOC_POLICIES),
+                    help="central-allocator policy: the free list (the CUDA "
+                         "kernel on the card), address-ordered first fit "
+                         "over the owner bitmap, or power-of-two buddy runs")
+    ap.add_argument("--loadgen", default="off",
+                    choices=["off", *ARRIVAL_KINDS],
+                    help="open-loop arrival process; anything but 'off' "
+                         "drives the multi-engine loop by virtual arrival "
+                         "time and reports TTFT percentiles")
+    ap.add_argument("--rate", type=float, default=0.15,
+                    help="open-loop mean arrivals per decode step")
+    ap.add_argument("--priority-frac", type=float, default=0.0,
+                    help="open-loop fraction of requests at priority 1")
+    ap.add_argument("--shared-prefix-frac", type=float, default=0.0,
+                    help="open-loop fraction of prompts opening with one "
+                         "common prefix (exercises --prefix-cache)")
+    ap.add_argument("--record-trace", default=None, metavar="FILE",
+                    help="write the open-loop run's allocator-op trace to "
+                         "FILE for model-free replay")
+    ap.add_argument("--max-windows", type=int, default=None,
+                    help="open-loop window budget (smoke-run bound)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.record_trace and args.loadgen == "off":
+        ap.error("--record-trace needs --loadgen")
 
     cfg = smoke_config(args.arch)
     rng = np.random.RandomState(args.seed)
@@ -227,13 +327,17 @@ def main(argv=None) -> None:
                               priority_every=args.priority_every)
     cache = dict(prefix_cache=args.prefix_cache == "on",
                  eviction=args.eviction, cache_pages=args.cache_pages,
-                 prefix_alias=args.prefix_alias)
-    if args.engines > 1:
+                 prefix_alias=args.prefix_alias,
+                 alloc_policy=args.alloc_policy)
+    if args.engines > 1 or args.loadgen != "off":
         me = MultiEngine(cfg, kvcfg, params, n_engines=args.engines,
                          sched_cfg=scfg, quantum=args.quantum,
                          preemption=args.preemption, router=args.router,
                          device=args.device, **cache)
-        serve_multi(me, requests, args.max_new_tokens)
+        if args.loadgen != "off":
+            serve_loadgen(me, cfg, args)
+        else:
+            serve_multi(me, requests, args.max_new_tokens)
         return
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg,
                         device=args.device, **cache)

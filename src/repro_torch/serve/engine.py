@@ -21,8 +21,12 @@ K/V into fresh lane pages, ``"alias"`` splices the cached page ids into
 the lane's block table with a refcount bump (full attention only: a
 windowed architecture falls back to copy, as in the JAX package).
 
-Left for later slices (ROADMAP.md, Queue 1): compaction and the
-contiguity telemetry that goes with it.
+``alloc_policy`` names the central allocator design (``freelist``,
+``bitmap``, ``buddy`` or a registered one).  Admission asks for its KV
+pages as runs (``malloc_run``), which the buddy policy places contiguously;
+``EngineStats.mean_run_len`` reads how well it did, and :meth:`compact`
+repacks sole-owner pages between burst windows so the free space
+coalesces again.
 """
 from __future__ import annotations
 
@@ -76,6 +80,20 @@ class EngineStats:
     cache_hit_copy_bytes: int = 0  # prefix K/V bytes copied at hit admission
     cache_hit_admits: int = 0      # admission batches with >= 1 hit
     cache_hit_admit_us: float = 0.0  # wall time of those batches
+    # --- contiguity telemetry, over just-admitted lanes' block-table rows:
+    # an extent is a maximal run of consecutive page ids ---
+    contiguous_extents: int = 0    # maximal consecutive-id runs admitted
+    extent_pages: int = 0          # pages covered by those runs
+    compactions: int = 0           # compaction passes run
+    compaction_moves: int = 0      # pages moved by those passes
+
+    @property
+    def mean_run_len(self) -> float:
+        """Mean run length of admitted KV pages (pages per extent; 1.0 ==
+        every page an island)."""
+        if not self.contiguous_extents:
+            return 0.0
+        return self.extent_pages / self.contiguous_extents
 
     @property
     def hit_admit_us(self) -> float:
@@ -185,6 +203,8 @@ class ServingEngine:
     service's one allocator state (a multi-engine shard).
     ``eviction`` names the prefix cache's policy and ``prefix_alias`` its
     hit admission mode (the JAX package's defaults: ``lru``, ``copy``).
+    ``alloc_policy`` names the allocator policy of the engine's own
+    service; a shard installed with ``tenants`` runs its service's.
     """
 
     def __init__(self, cfg: ArchConfig, kvcfg: PagedKVConfig,
@@ -197,18 +217,24 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  eviction: str = "lru",
                  cache_pages: Optional[int] = None,
-                 prefix_alias: str = "copy"):
+                 prefix_alias: str = "copy",
+                 alloc_policy: str = "freelist"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kvcfg = kvcfg
         self.params = params
         self.sched_cfg = sched_cfg or make_scheduler_config(cfg, kvcfg)
         self.tenants = tenants if tenants is not None \
-            else pkv.paged_tenants(kvcfg, self.device)
+            else pkv.paged_tenants(kvcfg, self.device, policy=alloc_policy)
         self.service = self.tenants.service
         if self.service.device != self.device:
             raise ValueError(f"tenants live on {self.service.device}, the "
                              f"engine on {self.device}")
+        if self.service.policy.name != alloc_policy:
+            raise ValueError(
+                f"the tenants' service runs policy "
+                f"{self.service.policy.name!r}, not {alloc_policy!r}")
+        self.alloc_policy = alloc_policy
         self.defer_refill = defer_refill
         self.pending_ops: list = []
         self.cache: Optional[pkv.PrefixCache] = None
@@ -261,6 +287,26 @@ class ServingEngine:
         for this engine's tenants only."""
         return self.service.tenant_report(self.state.paged.alloc,
                                           tenants=self.tenants.handles)
+
+    def fragmentation_report(self) -> dict[str, dict]:
+        """Per-tenant external-fragmentation snapshot of the live allocator
+        state, for this engine's tenants only."""
+        return self.service.fragmentation_report(
+            self.state.paged.alloc, tenants=self.tenants.handles)
+
+    def compact(self, max_moves: Optional[int] = None) -> int:
+        """One KV compaction pass (:func:`~repro_torch.core.paged_kv
+        .compact_kv`): sole-owner lane pages slide into lower (or higher)
+        free holes so the free space coalesces; aliased prefix pages, cache
+        residents and stash pages never move.  Call it between burst
+        windows.  Returns the pages moved."""
+        paged, moved = pkv.compact_kv(self.kvcfg, self.state.paged,
+                                      self.tenants, max_moves=max_moves)
+        if moved:
+            self.state = self.state._replace(paged=paged)
+        self.stats.compactions += 1
+        self.stats.compaction_moves += moved
+        return moved
 
     # ---------------- prefix cache ----------------
 
@@ -488,6 +534,12 @@ class ServingEngine:
         lanes_host = lanes_np.tolist()
         ok = paged.active[lanes_arr.long()].cpu().tolist()
         failed = [lane for lane, o in zip(lanes_host, ok) if not o]
+        ok_lanes = [lane for lane, o in zip(lanes_host, ok) if o]
+        if ok_lanes:
+            # how well the policy served admission's run grants
+            ext, pgs = pkv.extent_stats(paged.block_tables, ok_lanes)
+            self.stats.contiguous_extents += ext
+            self.stats.extent_pages += pgs
         for lane, o in zip(lanes_host, ok):
             # pin the spliced entries of every lane that admitted (the
             # refcount bump was gated on the same success)

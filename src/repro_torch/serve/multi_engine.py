@@ -84,8 +84,9 @@ class MultiEngine:
 
     ``quantum`` is the burst-window length in decode steps; ``quantum=1``
     gives the per-step commit cadence.  All shards share ``params`` (one
-    model on the device); each builds its own decode step.  ``eviction`` and ``prefix_alias`` default to the
-    JAX package's ``lru`` and ``copy``.
+    model on the device); each builds its own decode step.  ``eviction``
+    and ``prefix_alias`` default to the JAX package's ``lru`` and
+    ``copy``; ``alloc_policy`` names the shared service's policy.
     """
 
     def __init__(self, cfg: ArchConfig, kvcfg: PagedKVConfig,
@@ -97,7 +98,8 @@ class MultiEngine:
                  eviction: str = "lru",
                  cache_pages: Optional[int] = None,
                  prefix_alias: str = "copy",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 alloc_policy: str = "freelist"):
         if n_engines < 1:
             raise ValueError("n_engines must be >= 1")
         if quantum < 1:
@@ -111,7 +113,8 @@ class MultiEngine:
 
         # one service, N namespaced tenant sets (all registered before the
         # state exists), one allocator state covering every shard's classes
-        self.service = AllocService(device=self.device)
+        self.alloc_policy = alloc_policy
+        self.service = AllocService(policy=alloc_policy, device=self.device)
         tenant_sets = [pkv.register_paged_tenants(self.service, kvcfg,
                                                   namespace=f"e{i}")
                        for i in range(n_engines)]
@@ -123,7 +126,8 @@ class MultiEngine:
                           alloc_state=self.alloc, defer_refill=True,
                           prefix_cache=prefix_cache, eviction=eviction,
                           cache_pages=cache_pages,
-                          prefix_alias=prefix_alias)
+                          prefix_alias=prefix_alias,
+                          alloc_policy=alloc_policy)
             for ts in tenant_sets]
         self.scheds = [Scheduler(scfg) for _ in range(n_engines)]
         self.router = Router(router)
@@ -248,6 +252,9 @@ class MultiEngine:
                 sched.complete(finished)
 
         self._flush_window(released, evicted)
+        if self.service.recorder is not None:
+            # window boundary in the allocator-op trace
+            self.service.recorder.mark_window()
         self.stats.windows += 1
         if validate:
             self.validate()
@@ -310,6 +317,17 @@ class MultiEngine:
             self.stats.window_slots_capacity += queue_cap
         for eng in self.engines:
             eng._note_burst(res.stats.per_tenant, issued=False)
+
+    def compact(self, max_moves: Optional[int] = None) -> list[int]:
+        """One KV compaction pass on every shard against the shared
+        allocator state (:meth:`ServingEngine.compact`); call it between
+        windows.  Returns each shard's pages moved."""
+        moved = []
+        for i, eng in enumerate(self.engines):
+            self._sync(i)
+            moved.append(eng.compact(max_moves=max_moves))
+            self._pull(i)
+        return moved
 
     # ---------------- reporting / validation ----------------
 

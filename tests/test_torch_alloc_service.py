@@ -153,10 +153,15 @@ def test_commit_matches_jax_raw_queues():
 
 
 def test_only_freelist_policy_is_ported():
-    assert get_policy("freelist").name == "freelist"
-    for name in ("bitmap", "buddy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            AllocService(policy=name, device="cpu")
+    """Every built-in policy of the JAX package is ported now; an unknown
+    name raises as the JAX ``get_policy`` does."""
+    for name in ("freelist", "bitmap", "buddy"):
+        assert get_policy(name).name == name
+        assert AllocService(policy=name, device="cpu").policy.name == name
+    assert get_policy("buddy").supports_runs
+    assert not get_policy("bitmap").supports_runs
+    with pytest.raises(ValueError, match="unknown alloc policy"):
+        AllocService(policy="slab", device="cpu")
 
 
 def test_commit_rejects_mismatched_state():

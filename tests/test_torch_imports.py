@@ -9,7 +9,7 @@
   yardstick.
 * No module of ``src/repro_torch`` reads an environment variable.
 * Without a card, an entry point called without ``device="cpu"`` raises
-  instead of falling back to the CPU.
+  instead of falling back to the CPU; both launchers print ``--help``.
 * The kernel wrapper on CPU tensors runs the plain version and leaves its
   launch counter at 0.
 """
@@ -94,11 +94,33 @@ def test_port_has_its_modules():
                 "models/model_zoo.py", "serve/serve_step.py",
                 "serve/scheduler.py", "serve/engine.py", "launch/serve.py",
                 "serve/router.py", "serve/multi_engine.py",
-                "alloc/eviction.py"):
+                "alloc/eviction.py", "loadgen/__init__.py",
+                "loadgen/arrivals.py", "loadgen/workload.py",
+                "loadgen/driver.py", "loadgen/trace.py",
+                "launch/replay.py"):
         assert mod in names, mod
 
 
-def test_entry_points_raise_without_card():
+@pytest.mark.parametrize("launcher", ["serve", "replay"])
+def test_launchers_print_help(launcher):
+    """Both launchers parse ``--help`` (and exit 0) on a host without a
+    card, through ``python -m`` as a user runs them."""
+    import subprocess
+    import sys
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--help"],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+    assert "usage:" in res.stdout
+    for flag in {"serve": ("--alloc-policy", "--loadgen", "--rate",
+                           "--priority-frac", "--shared-prefix-frac",
+                           "--record-trace", "--max-windows"),
+                 "replay": ("--policy", "--device")}[launcher]:
+        assert flag in res.stdout, flag
+
+
+def test_entry_points_raise_without_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the no-card rule is moot")
     from repro_torch.alloc import AllocService
@@ -124,6 +146,24 @@ def test_entry_points_raise_without_card():
     from repro_torch.serve.multi_engine import MultiEngine
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiEngine(cfg, kvcfg, params, n_engines=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiEngine(cfg, kvcfg, params, n_engines=2, alloc_policy="buddy")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "deepseek-7b", "--requests", "1", "--loadgen",
+              "poisson", "--alloc-policy", "buddy"])
+    from repro_torch.launch.replay import main as replay_main
+    from repro_torch.loadgen import AllocTrace, replay_trace
+    trace = AllocTrace(header={"version": 1, "policy": "buddy",
+                               "backend": "jnp", "tenants": [["kv", 4]],
+                               "traced_commits": 0, "complete": True},
+                       events=[])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_trace(trace)
+    assert replay_trace(trace, device="cpu").bursts == 0
+    from repro_torch.loadgen import save_trace
+    save_trace(trace, tmp_path / "t.trc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_main([str(tmp_path / "t.trc")])
 
 
 def test_kernel_wrapper_on_cpu_uses_plain_version():

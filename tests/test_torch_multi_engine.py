@@ -240,10 +240,12 @@ def test_decode_window_costs_at_most_one_merged_commit(dense, monkeypatch):
 
 
 def test_preemption_resume_matches_uninterrupted_output(dense):
-    _, cfg, _, tparams = dense
-    kvcfg = make_paged_config(cfg, seq_len=64, lanes=2, page_size=4,
-                              dtype=torch.float32)
-    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=32)
+    """A priority-3 request preempts a running lane; the victim resumes
+    exactly.  Held against the port's uninterrupted solo runs and, window
+    by window, against the JAX ``MultiEngine`` on the same requests: equal
+    tokens and a bit-identical shared state after every window."""
+    jcfg, cfg, jparams, tparams = dense
+    jkv, kvcfg, scfg = _configs(jcfg, cfg)
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (9, 11, 7)]
@@ -255,21 +257,39 @@ def test_preemption_resume_matches_uninterrupted_output(dense):
         solo[rid] = _outputs(me.finished)[rid]
     me = MultiEngine(cfg, kvcfg, tparams, n_engines=1, sched_cfg=scfg,
                      quantum=2, preemption=True, device="cpu")
-    me.submit([Request(rid=0, tokens=prompts[0].copy()),
-               Request(rid=1, tokens=prompts[1].copy())], max_new_tokens=10)
-    me.step_window(validate=True)
-    me.submit([Request(rid=2, tokens=prompts[2].copy(), priority=3)],
-              max_new_tokens=10)
-    while me.has_work:
-        assert me.step_window(validate=True)
+    jme = JMultiEngine(jcfg, jkv, jparams, n_engines=1, dtype=jnp.float32,
+                       sched_cfg=scfg, quantum=2, preemption=True,
+                       alloc_backend="jnp", alloc_policy="freelist")
+    windows = []
+
+    def window():
+        progress = (me.step_window(validate=True), jme.step_window())
+        windows.append(_alloc_equal(me.alloc, jme.alloc))
+        return progress
+
+    for m, cls in ((me, Request), (jme, JRequest)):
+        m.submit([cls(rid=0, tokens=prompts[0].copy()),
+                  cls(rid=1, tokens=prompts[1].copy())], max_new_tokens=10)
+    window()
+    for m, cls in ((me, Request), (jme, JRequest)):
+        m.submit([cls(rid=2, tokens=prompts[2].copy(), priority=3)],
+                 max_new_tokens=10)
+    while me.has_work or jme.has_work:
+        assert window() == (True, True)
+        assert len(windows) < 40
+    for i, diff in enumerate(windows):
+        assert not diff, f"window {i}: fields {diff} differ from JAX"
     assert me.stats.preemptions >= 1
+    assert me.stats.preemptions == jme.stats.preemptions
     done = {r.rid: r for r in me.finished}
     assert sorted(done) == [0, 1, 2]
     assert any(r.preemptions for r in done.values())
     for rid, req in done.items():
         assert req.output == solo[rid], rid
+    assert _outputs(me.finished) == _outputs(jme.finished)
     for d in me.tenant_rollup().values():
         assert d["used"] == 0 and d["alloc_count"] == d["free_count"]
+    assert me.tenant_rollup() == jme.tenant_rollup()
 
 
 def test_shard_running_dry_leaves_other_shard_untouched(dense):
