@@ -78,17 +78,19 @@ Phases, each failing loudly (non-zero exit, no result line):
                shared prefix, a quarter at priority 1), every shard
                compacted after every second window, the allocator-op trace
                recorded; fails on a stranded request, on I1-I6 after any
-               window (checked on host snapshots after the run), unless
+               window (copied on the card, checked after the run), unless
                every decode and prefill attention is a kernel launch and
                the support core none, unless each shard's mean run length
                exceeds 1 and its last occupancy is its cache's residue;
                prints TTFT and TPOT percentiles, requests/s, queue depth,
                the compaction moves and a pass's fragmentation report;
-4e. replay   -- 4d's tracefile replayed with no model under each policy on
-               the card and on the CPU: final states bit-identical, the
-               buddy replay's counters the live run's, every free-list
-               burst a kernel launch; prints each replay's wall time and
-               bursts/s;
+4e. replay   -- 4d's tracefile replayed with no model on the card and on
+               the CPU: as recorded (buddy), the live run's counters;
+               without its block-naming ops (``drop_block_ids``), under
+               each of the three policies; every final state card == CPU
+               bit for bit, every free-list burst a kernel launch, and a
+               what-if of the whole trace refused; prints each replay's
+               wall time and bursts/s;
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
                through the port on ``cuda`` and on ``cpu``, for both
                architectures: allocator state and served tokens must be
@@ -1460,28 +1462,49 @@ class CacheBlocks:
         return self._blocks
 
 
+def device_copy(x):
+    """A state (a NamedTuple of tensors) copied on its own device: queued
+    on the stream, no host read."""
+    return type(x)(*[t.clone() for t in x])
+
+
 def snapshot(me) -> list:
-    """Host copies of what I1-I6 read after a window, per shard: the shared
-    allocator state, the shard's tables and stash, its cache's blocks."""
-    alloc = to_cpu(me.alloc)
+    """Device copies of what I1-I6 read after a window, per shard: the
+    shared allocator state, the shard's tables and stash (its cache's
+    blocks are host data already).  :func:`snapshot_to_host` moves them to
+    the host once the timed run is over."""
+    alloc = device_copy(me.alloc)
     out = []
     for eng in me.engines:
         p = eng.state.paged
         out.append((p._replace(
-            alloc=alloc, block_tables=p.block_tables.cpu(),
-            seq_lens=p.seq_lens.cpu(), active=p.active.cpu(),
-            stash=to_cpu(p.stash), scratch_slot=p.scratch_slot.cpu(),
+            alloc=alloc, block_tables=p.block_tables.clone(),
+            seq_lens=p.seq_lens.clone(), active=p.active.clone(),
+            stash=device_copy(p.stash), scratch_slot=p.scratch_slot.clone(),
             k_pages=None, v_pages=None),
             eng.tenants, CacheBlocks(eng.cache.blocks())))
     return out
 
 
+def snapshot_to_host(snap: list) -> list:
+    alloc = to_cpu(snap[0][0].alloc)
+    return [(p._replace(alloc=alloc, block_tables=p.block_tables.cpu(),
+                        seq_lens=p.seq_lens.cpu(), active=p.active.cpu(),
+                        stash=to_cpu(p.stash),
+                        scratch_slot=p.scratch_slot.cpu()), tenants, cache)
+            for p, tenants, cache in snap]
+
+
 def open_loop_full_width(dev, cfg, params) -> dict:
     """Phase 4d: the slice's path at full width -- open-loop arrivals on two
     shards under the buddy policy, a compaction pass every two windows, the
-    allocator-op trace recorded.  I1-I6 are checked on host snapshots taken
-    after every window, once the run is over, so the check's own time
-    stays out of the latencies.  Returns the run's launches and numbers."""
+    allocator-op trace recorded.  After every window the state I1-I6 read
+    is copied on the card, and the allocator state around every pass too;
+    the copies reach the host, and are checked and reported, only after
+    the timed run.  The timed loop thus holds no host read of the check's
+    or of the fragmentation report's; each pass's own plan (one host read
+    of the allocator rows) stays in, as in any compacting deployment.
+    Returns the run's launches and numbers."""
     from repro_torch.core.paged_kv import validate_paged_kv
     from repro_torch.loadgen import (LoadgenSpec, build_workload,
                                      certify_complete, record_service,
@@ -1489,20 +1512,15 @@ def open_loop_full_width(dev, cfg, params) -> dict:
     me = multi_engine(cfg, params, torch.bfloat16, dev, True, True,
                       policy=OPEN_LOOP["policy"])
     timed = build_workload(LoadgenSpec(**OPEN_LOOP["spec"]), cfg.vocab_size)
-    snaps, moves, frag = [], [], {}
+    snaps, moves, passes_state = [], [], []
     inner = me.step_window
 
     def window():
         progressed = inner()
         if me.stats.windows % OPEN_LOOP["compact_every"] == 0:
-            before = [e.fragmentation_report() for e in me.engines]
-            moved = me.compact()
-            moves.append(moved)
-            if max(moved) > frag.get("moved", 0):
-                i = int(np.argmax(moved))
-                kv = me.engines[i].tenants.kv.name
-                frag.update(shard=i, moved=moved[i], before=before[i][kv],
-                            after=me.engines[i].fragmentation_report()[kv])
+            before = device_copy(me.alloc)
+            moves.append(me.compact())
+            passes_state.append((before, device_copy(me.alloc)))
         snaps.append(snapshot(me))
         return progressed
 
@@ -1522,7 +1540,7 @@ def open_loop_full_width(dev, cfg, params) -> dict:
         fail(f"4d: completed {rep.completed}/{len(timed)}, failed "
              f"{rep.failed}, stranded {rep.stranded}")
     for w, snap in enumerate(snaps):
-        for state, tenants, cache in snap:
+        for state, tenants, cache in snapshot_to_host(snap):
             try:
                 validate_paged_kv(me.kvcfg, state, tenants, cache=cache)
             except AssertionError as err:
@@ -1544,6 +1562,15 @@ def open_loop_full_width(dev, cfg, params) -> dict:
             fail(f"4d: shard {i} holds {used} pages at the end, its cache "
                  f"{s.cache_pages} ({eng.cache.pinned} pinned)")
     total_moves = sum(map(sum, moves))
+    frag = {}
+    if total_moves:
+        k, i = max(((k, i) for k in range(len(moves))
+                    for i in range(len(moves[k]))),
+                   key=lambda ki: moves[ki[0]][ki[1]])
+        kv = me.engines[i].tenants.kv
+        before, after = (me.service.fragmentation_report(
+            to_cpu(a), tenants=[kv])[kv.name] for a in passes_state[k])
+        frag = dict(shard=i, moved=moves[k][i], before=before, after=after)
     prompts = [r.prompt_len for _, r in timed]
     outs = [r.max_new_tokens for _, r in timed]
     print(f"  {len(timed)} requests (prompts {min(prompts)}-{max(prompts)} "
@@ -1600,44 +1627,71 @@ def open_loop_full_width(dev, cfg, params) -> dict:
     return result
 
 
+def replay_on_both(trace, policy: str, dev, what: str):
+    """``trace`` replayed under ``policy`` on the card (support-core
+    launches counted) and on the CPU; fails unless the final states and
+    counters are identical and, under the free list, every burst was one
+    kernel launch.  Returns ``(card result, cpu result, launches)``."""
+    from repro_torch.loadgen import replay_trace
+    zero_launches()
+    res = replay_trace(trace, policy=policy, device=dev)
+    launches = read_launches()["support_core_burst"]
+    cpu = replay_trace(trace, policy=policy, device="cpu")
+    for field in res.state._fields:
+        if not torch.equal(getattr(res.state, field).cpu(),
+                           getattr(cpu.state, field)):
+            fail(f"4e: {what} under {policy}, {field} differs between the "
+                 f"card and the cpu")
+    if res.report != cpu.report:
+        fail(f"4e: {what} under {policy}, counters differ between the card "
+             f"and the cpu")
+    want = res.bursts if policy == "freelist" else 0
+    if launches != want:
+        fail(f"4e: {what} under {policy} made {launches} support-core "
+             f"launches, expected {want}")
+    return res, cpu, launches
+
+
 def replay_full_width(dev, live: dict) -> dict:
-    """Phase 4e: 4d's tracefile replayed with no model, under each policy,
-    on the card and on the CPU: final states bit-identical; under the
-    recorded policy (buddy) the live run's counters exactly; under the free
-    list every burst one support-core kernel launch."""
+    """Phase 4e: 4d's tracefile replayed with no model, on the card and on
+    the CPU.  As recorded (buddy): the live run's counters exactly.  Its
+    single frees, retags and bumps name buddy's block ids, so a replay
+    under another policy must refuse it; the trace without them
+    (``drop_block_ids``) replays under all three policies, the same
+    packets under each, so each rate is its policy's alone.  Every replay:
+    card == CPU bit for bit, every free-list burst a kernel launch."""
     from repro_torch.loadgen import load_trace, replay_trace
     trace = load_trace(TRACE_PATH)
+    recorded = trace.header["policy"]
     out = {}
-    for policy in ("buddy", "freelist", "bitmap"):
-        zero_launches()
-        res = replay_trace(trace, policy=policy, device=dev)
-        launches = read_launches()["support_core_burst"]
-        cpu = replay_trace(trace, policy=policy, device="cpu")
-        for field in res.state._fields:
-            if not torch.equal(getattr(res.state, field).cpu(),
-                               getattr(cpu.state, field)):
-                fail(f"4e: {policy} replay, {field} differs between the "
-                     f"card and the cpu")
-        if res.report != cpu.report:
-            fail(f"4e: {policy} replay counters differ between card and cpu")
-        if policy == trace.header["policy"] and res.report != live:
+    runs = [("recorded", trace, recorded)] + [
+        ("without block ids", trace.drop_block_ids(), policy)
+        for policy in ("buddy", "freelist", "bitmap")]
+    for what, tr, policy in runs:
+        res, cpu, launches = replay_on_both(tr, policy, dev, what)
+        if what == "recorded" and res.report != live:
             fail(f"4e: the {policy} replay's counters {res.report} are not "
                  f"the live run's {live}")
-        want = res.bursts if policy == "freelist" else 0
-        if launches != want:
-            fail(f"4e: {policy} replay made {launches} support-core "
-                 f"launches, expected {want}")
         rate = res.bursts / res.wall_s
-        same = res.report == live
-        print(f"  replay under {policy} on the card: {res.bursts} bursts "
-              f"({res.live_bursts} live, {res.ops} ops) in "
-              f"{res.wall_s * 1e3:.1f} ms = {rate:.0f} bursts/s "
-              f"(cpu {cpu.wall_s * 1e3:.1f} ms), {launches} kernel launches; "
-              f"final state card == cpu; counters "
-              f"{'equal' if same else 'differ from'} the live run's")
-        out[policy] = dict(wall_s=res.wall_s, bursts=res.bursts,
-                           bursts_per_s=rate, cpu_wall_s=cpu.wall_s,
-                           launches=launches, counters_equal_live=same)
+        print(f"  replay of the {what} trace under {policy} on the card: "
+              f"{res.bursts} bursts ({res.live_bursts} live, {res.ops} ops) "
+              f"in {res.wall_s * 1e3:.1f} ms = {rate:.1f} bursts/s (cpu "
+              f"{cpu.wall_s * 1e3:.1f} ms), {launches} kernel launches; "
+              f"final state card == cpu"
+              + ("; counters == the live run's" if what == "recorded"
+                 else ""))
+        out[f"{what}/{policy}"] = dict(
+            wall_s=res.wall_s, bursts=res.bursts, bursts_per_s=rate,
+            cpu_wall_s=cpu.wall_s, launches=launches)
+    for policy in ("freelist", "bitmap"):
+        try:
+            replay_trace(trace, policy=policy, device=dev)
+        except ValueError:
+            continue
+        fail(f"4e: a what-if replay under {policy} of a trace that names "
+             f"block ids was not refused")
+    print("  the recorded trace under freelist and bitmap: refused (it "
+          "names buddy's block ids)")
     return out
 
 
@@ -1915,12 +1969,13 @@ def main() -> None:
           "policy, deepseek-7b at full width, compaction every two windows, "
           "the allocator-op trace recorded")
     served["deepseek-7b open loop"] = open_loop_full_width(dev, cfg, params)
-    print("== 4e. the open loop's trace replayed with no model, under each "
-          "policy, on the card and on the cpu")
+    print("== 4e. the open loop's trace replayed with no model, as "
+          "recorded and, without its block ids, under each policy, on the "
+          "card and on the cpu")
     replayed = replay_full_width(dev,
                                  served["deepseek-7b open loop"].pop("live"))
     served["replay freelist"] = dict(launches=dict(
-        support_core_burst=replayed["freelist"]["launches"],
+        support_core_burst=replayed["without block ids/freelist"]["launches"],
         paged_decode_attention=0, flash_attention=0))
     del params
     torch.cuda.empty_cache()

@@ -77,6 +77,11 @@ class FreeListPolicy:
     #: the free list has no contiguity placement: ``malloc_run`` lowers to
     #: a plain malloc at staging time
     supports_runs = False
+    #: whether every burst rebuilds the free stack from the owner bitmap
+    #: (read by ``loadgen.trace.certify_complete``: a compaction pass's
+    #: stack rebuild is in no trace event); a policy without the attribute
+    #: counts as not rebuilding
+    rebuilds_stack = False
 
     def init(self, capacities: Sequence[int],
              device: torch.device) -> FreeListState:
@@ -183,6 +188,7 @@ class BitmapPolicy:
 
     name = "bitmap"
     supports_runs = False
+    rebuilds_stack = True
 
     def init(self, capacities: Sequence[int],
              device: torch.device) -> FreeListState:
@@ -255,6 +261,7 @@ class BuddyPolicy:
 
     name = "buddy"
     supports_runs = True
+    rebuilds_stack = True
 
     def init(self, capacities: Sequence[int],
              device: torch.device) -> FreeListState:

@@ -31,7 +31,6 @@ import torch
 
 from ..core.freelist import FreeListState
 from ..core.hmq import schedule
-from ..core.scatter import set_drop
 from ..core.freelist import fragmentation_report
 from ..core.packets import (FREE_ALL, NO_BLOCK, OP_FREE, OP_MALLOC,
                             OP_MALLOC_RUN, OP_NOP, OP_REFILL, RequestQueue,
@@ -314,10 +313,8 @@ class AllocService:
             return state
         if self.recorder is not None:
             self.recorder.on_retag(tenant.size_class, blocks, new_owner)
-        # ids past the class's width drop, as the JAX package's mode="drop"
-        owner = set_drop(state.owner, (torch.full_like(blocks,
-                                                       tenant.size_class),
-                                       blocks), int(new_owner))
+        owner = state.owner.clone()
+        owner[tenant.size_class, blocks] = int(new_owner)
         return state._replace(owner=owner)
 
     def bump_refcounts(self, state: FreeListState, tenant: TenantHandle,

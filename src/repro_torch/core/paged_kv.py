@@ -879,7 +879,9 @@ def compact_kv(cfg: PagedKVConfig, state: PagedKVState,
     ``retag_blocks`` and ``bump_refcounts``, so an allocator-op trace
     carries the pass; the stack rebuild it does not carry, so a replay
     matches the run after the pass only under the bitmap and buddy
-    policies (which rebuild the stack from the bitmap every burst).
+    policies (which rebuild the stack from the bitmap every burst), and
+    ``loadgen.trace.certify_complete`` refuses a trace of a run that
+    compacted under the free list.
     Returns ``(new_state, pages_moved)``.
     """
     cls = tenants.kv.size_class

@@ -5,8 +5,10 @@ Drives a recorded allocator-op tracefile (``launch.serve --loadgen ...
 --record-trace FILE`` of either package, or ``loadgen.trace.save_trace``)
 through a model-free ``AllocService``: no model forward, on the card
 unless ``--device cpu``.  ``--policy`` replays the trace under another
-allocator design.  Prints the per-tenant counters, the replay's wall time
-and its bursts per second.
+allocator design; single frees, retags and bumps name the recorded
+policy's block ids, so such a replay leaves them out
+(``AllocTrace.drop_block_ids``) and says so.  Prints the per-tenant
+counters, the replay's wall time and its bursts per second.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def main(argv=None) -> None:
           f"tenants={len(h['tenants'])} bursts={trace.bursts} "
           f"({trace.live_bursts} live, {trace.ops} ops) "
           f"windows={trace.windows} complete={h['complete']}")
+    if args.policy not in (None, h["policy"]) and trace.names_block_ids:
+        trace = trace.drop_block_ids()
+        print(f"under {args.policy}: without the single frees, retags and "
+              f"bumps, which name {h['policy']}'s block ids "
+              f"({trace.ops} ops left)")
     res = replay_trace(trace, policy=args.policy, device=args.device)
     rate = res.bursts / res.wall_s if res.wall_s > 0 else 0.0
     print(f"replayed {res.bursts} bursts ({res.live_bursts} live) on "

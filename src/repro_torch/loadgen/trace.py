@@ -36,10 +36,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..alloc.policies import get_policy
 from ..alloc.service import AllocService
 from ..core.packets import OP_FREE, RequestQueue
-from ..core.paged_kv import CACHE_OWNER
-from ..core.scatter import set_drop
 from ..device import DeviceLike, resolve_device
 
 TRACE_MAGIC = b"REPROALLOCTRACE"
@@ -92,6 +91,38 @@ class AllocTrace:
         """Live (non-NOP) packets across every recorded burst."""
         return sum(int(np.sum(ev[2] != 0)) for ev in self.events
                    if ev[0] == "burst")
+
+    @property
+    def names_block_ids(self) -> bool:
+        """Whether any event names a block id: a single free
+        (``OP_FREE`` with ``arg >= 0``), a retag or a bump.  Such ids are
+        the recorded policy's, so they name other pages under another."""
+        return any(ev[0] in ("retag", "bump") or (
+            ev[0] == "burst" and bool(np.any((ev[2] == OP_FREE)
+                                             & (ev[5] >= 0))))
+            for ev in self.events)
+
+    def drop_block_ids(self) -> "AllocTrace":
+        """The trace without its block-naming ops: single frees become
+        NOPs (all four planes 0, as the replay's padding) and retags and
+        bumps go.  What stays -- mallocs, refills, runs, FREE_ALLs and the
+        window marks -- means the same pages under every policy, so the
+        result replays under any of them (a what-if of the run's
+        admission and release traffic).  The header is copied with
+        ``complete`` reset to ``None``: the result is not the run's
+        record."""
+        events = []
+        for ev in self.events:
+            if ev[0] in ("retag", "bump"):
+                continue
+            if ev[0] == "burst":
+                _, r, *planes = ev
+                single = (planes[0] == OP_FREE) & (planes[3] >= 0)
+                ev = ("burst", r, *(np.where(single, 0, p).astype(np.int32)
+                                    for p in planes))
+            events.append(ev)
+        return AllocTrace(header=dict(self.header, complete=None),
+                          events=events)
 
 
 def _host_i32(x) -> np.ndarray:
@@ -157,14 +188,18 @@ def record_service(service: AllocService) -> TraceRecorder:
 
 def certify_complete(trace: AllocTrace, engines: Sequence,
                      window_bursts: int = 0) -> AllocTrace:
-    """Mark ``trace`` complete iff it holds every commit the run made.
+    """Mark ``trace`` complete iff it holds every state change the run
+    made.
 
-    Every commit of the port is recorded, so the check is a count: the
-    trace's bursts must equal the engines' commits
+    Every commit of the port is recorded, so the first check is a count:
+    the trace's bursts must equal the engines' commits
     (``EngineStats.commits``: admissions, decode steps, releases) plus the
     deployment's ``window_bursts`` (``MultiEngineStats.window_bursts``).
-    Raises when they differ -- a recorder attached after the run began or
-    detached before it ended.
+    The second is compaction: a pass rebuilds the free stack ascending,
+    and no event carries that, so a pass that moved pages under a policy
+    whose bursts keep the stack as they find it (the free list; see the
+    policy's ``rebuilds_stack``) leaves a trace that replays to another
+    stack.  Raises in either case.
     """
     made = sum(e.stats.commits for e in engines) + int(window_bursts)
     if trace.header.get("traced_commits", 0) or trace.bursts != made:
@@ -173,6 +208,14 @@ def certify_complete(trace: AllocTrace, engines: Sequence,
             f"({trace.header.get('traced_commits', 0)} unserialized) but "
             f"the run made {made} commits; attach the recorder before the "
             f"first commit and detach it after the last")
+    moved = sum(e.stats.compaction_moves for e in engines)
+    policy = get_policy(trace.header["policy"])
+    if moved and not getattr(policy, "rebuilds_stack", False):
+        raise ValueError(
+            f"trace incomplete: compaction moved {moved} pages under the "
+            f"{policy.name} policy, whose free stack the pass rebuilt "
+            f"outside the trace; record compacting runs under a policy "
+            f"that rebuilds its stack every burst (bitmap, buddy)")
     trace.header["complete"] = True
     return trace
 
@@ -270,97 +313,6 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-class _IdMap:
-    """Recorded block id -> replayed block id, per class, on the device,
-    for a replay under another policy than the recorded one.
-
-    A trace's single frees, retags and refcount bumps name block ids that
-    the RECORDED policy granted; another policy grants the same logical
-    pages other ids.  A shadow service replays the trace under the
-    recorded policy, and each burst maps the j-th block it granted a slot
-    to the j-th block the replayed policy granted the same slot (grant and
-    fail sets are policy-independent).  An id the recorded policy holds
-    free maps to the out-of-range id ``N``, which every op drops.
-
-    A retag to ``CACHE_OWNER`` (a demotion) and a bump of cache-owned
-    pages (an alias splice) follow their pages.  Any other retag or bump
-    is a compaction pass relabelling a lane's pages; the replayed state
-    keeps its ids, and each lane's pages are paired anew, in id order.
-    """
-
-    def __init__(self, trace: AllocTrace, dev: torch.device, state):
-        self.svc = _service(trace, trace.header["policy"], dev)
-        self.state = self.svc.init_state()
-        C, N = state.num_classes, state.max_capacity
-        self.ids = torch.full((C, N + 1), N, dtype=torch.int32, device=dev)
-
-    def _lookup(self, cls: torch.Tensor, blocks: torch.Tensor):
-        C, N1 = self.ids.shape
-        return self.ids[cls.long().clamp(0, C - 1),
-                        blocks.long().clamp(0, N1 - 1)]
-
-    def _drop_free(self) -> None:
-        N = self.ids.shape[1] - 1
-        self.ids[:, :N] = torch.where(self.state.owner >= 0,
-                                      self.ids[:, :N], N)
-
-    def translate(self, queue: RequestQueue) -> RequestQueue:
-        single = (queue.op == OP_FREE) & (queue.arg >= 0)
-        return queue._replace(arg=torch.where(
-            single, self._lookup(queue.size_class, queue.arg), queue.arg))
-
-    def commit(self, queue: RequestQueue, r: int, blocks: torch.Tensor):
-        """Replay ``queue`` on the shadow and map its grants onto
-        ``blocks``, the replayed policy's response to the same queue."""
-        C = self.ids.shape[0]
-        self.state, res = self.svc.commit(self.state, queue,
-                                          max_blocks_per_req=r, gated=True)
-        granted = res.blocks >= 0
-        cls = queue.size_class.clamp(0, C - 1)[:, None]
-        self.ids = set_drop(self.ids, (torch.where(granted, cls, C),
-                                       res.blocks), blocks)
-        self._drop_free()
-
-    def event(self, kind: str, cls: int, blocks: np.ndarray, x: int):
-        """Apply a retag or bump to the shadow; returns the replayed ids
-        the event follows, or ``None`` for a compaction relabel."""
-        N = self.ids.shape[1] - 1
-        b = np.asarray(blocks, np.int64)
-        owner = self.state.owner[cls].cpu().numpy()
-        named = owner[b[(b >= 0) & (b < N)]]
-        follows = (x == CACHE_OWNER and bool((named >= 0).all())) \
-            if kind == "retag" else bool((named == CACHE_OWNER).all())
-        out = None
-        if follows:
-            t = torch.as_tensor(b, device=self.ids.device)
-            out = self._lookup(torch.full_like(t, cls), t)
-        op = self.svc.retag_blocks if kind == "retag" \
-            else self.svc.bump_refcounts
-        self.state = op(self.state, self.svc.tenants[cls], blocks, x)
-        return out
-
-    def repair(self, replayed) -> None:
-        """Pair each lane's pages anew after a compaction relabel: the
-        k-th lowest id a lane holds in the shadow maps to the k-th lowest
-        id it holds in the replayed state (the same count)."""
-        C, N1 = self.ids.shape
-        dev = self.ids.device
-        rows = torch.arange(C, device=dev)[:, None].expand(C, N1 - 1)
-        cell = torch.arange(N1 - 1, device=dev)[None, :]
-
-        def by_lane(owner):
-            lane = (owner >= 0) & (owner != CACHE_OWNER)
-            key = torch.where(lane, owner.long() * N1 + cell, 2**62)
-            return key.sort(dim=1).indices, lane.sum(1)
-
-        src, n_src = by_lane(self.state.owner)
-        dst, _ = by_lane(replayed.owner)
-        take = cell < n_src[:, None]
-        self.ids = set_drop(self.ids, (torch.where(take, rows, C), src),
-                            dst.to(torch.int32))
-        self._drop_free()
-
-
 def _service(trace: AllocTrace, policy: str,
              dev: torch.device) -> AllocService:
     svc = AllocService(policy=policy, device=dev)
@@ -375,13 +327,16 @@ def replay_trace(trace: AllocTrace, policy: Optional[str] = None,
 
     With the recorded policy (``policy=None``), the packets replay as
     recorded and the final per-tenant counters are the live run's exactly.
-    ``policy`` replays the same logical traffic under another design (a
-    what-if): grants and failures are policy-independent, so the counters
-    stay the live run's while the ids differ; single frees, retags and
-    refcount bumps follow their pages through a shadow replay under the
-    recorded policy (:class:`_IdMap`), which costs a host read of one
-    owner row per retag or bump.  A buddy trace's ``OP_MALLOC_RUN``
-    packets grant as plain mallocs under the other policies.
+    ``policy`` replays the same packets under another design (a what-if),
+    as the JAX package's replay does, and raises ``ValueError`` on a trace
+    that :attr:`~AllocTrace.names_block_ids`: its single frees, retags
+    and bumps name the recorded policy's pages, which another policy
+    grants elsewhere (the JAX package applies them as they are and can
+    leave duplicate or out-of-range ids on the free stack; ROADMAP.md,
+    Queue 3).  :meth:`AllocTrace.drop_block_ids` gives the part of such a
+    trace that every policy reads alike.  A buddy trace's
+    ``OP_MALLOC_RUN`` packets grant as plain mallocs under the other
+    policies.
 
     ``device`` defaults to ``cuda`` (raising without a card).  Queues are
     padded with NOPs -- behaviour-neutral: scheduling sorts NOPs last -- to
@@ -389,12 +344,15 @@ def replay_trace(trace: AllocTrace, policy: Optional[str] = None,
     them by default; every burst commits gated, with one host-to-device
     copy of its queue.
     """
-    dev = resolve_device(device)
     recorded = trace.header["policy"]
+    if policy not in (None, recorded) and trace.names_block_ids:
+        raise ValueError(
+            f"a {recorded} trace that names block ids (single frees, "
+            f"retags, bumps) replays only under {recorded}; replay "
+            f"trace.drop_block_ids() under {policy}")
+    dev = resolve_device(device)
     svc = _service(trace, policy or recorded, dev)
     state = svc.init_state()
-    idmap = _IdMap(trace, dev, state) if svc.policy.name != recorded \
-        else None
     q_unified = _next_pow2(max(
         [ev[2].shape[0] for ev in trace.events if ev[0] == "burst"] or [1]))
 
@@ -408,13 +366,8 @@ def replay_trace(trace: AllocTrace, policy: Optional[str] = None,
             buf = np.zeros((4, q_unified), np.int32)
             buf[:, :planes[0].shape[0]] = np.stack(planes)
             queue = RequestQueue(*torch.as_tensor(buf).to(dev).unbind(0))
-            if idmap is None:
-                state, _ = svc.commit(state, queue, max_blocks_per_req=r,
-                                      gated=True)
-            else:
-                state, res = svc.commit(state, idmap.translate(queue),
-                                        max_blocks_per_req=r, gated=True)
-                idmap.commit(queue, r, res.blocks)
+            state, _ = svc.commit(state, queue, max_blocks_per_req=r,
+                                  gated=True)
             shapes.add(r)
             bursts += 1
             live = int(np.sum(planes[0] != 0))
@@ -425,11 +378,6 @@ def replay_trace(trace: AllocTrace, policy: Optional[str] = None,
         elif kind in ("retag", "bump"):
             _, cls, blocks, x = ev
             op = svc.retag_blocks if kind == "retag" else svc.bump_refcounts
-            if idmap is not None:
-                blocks = idmap.event(kind, cls, blocks, x)
-                if blocks is None:
-                    idmap.repair(state)
-                    continue
             state = op(state, svc.tenants[cls], blocks, x)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

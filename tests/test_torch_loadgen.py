@@ -12,9 +12,12 @@
 * The run's traces cross both ways: each package's recorded tracefile
   loads in the other and replays there to equal per-tenant counters and a
   bit-identical final state; the port's replay under the recorded policy
-  gives the live run's counters exactly, and under the other policies
-  (what-if) a valid state with the same counters.
-  ``tests/test_torch_trace.py`` crosses traces under all three policies.
+  gives the live run's counters exactly.  The traces name block ids
+  (single frees, retags, bumps): the JAX package's replay under another
+  policy corrupts the free stack, the port's refuses, and without those
+  ops (``drop_block_ids``) both replay to one valid state under every
+  policy.  ``tests/test_torch_trace.py`` crosses traces under all three
+  policies.
 """
 import pytest
 
@@ -212,19 +215,58 @@ def test_open_loop_traces_replay_across_packages(open_loop):
 @pytest.mark.parametrize("policy", ["freelist", "bitmap"])
 def test_what_if_replay_follows_pages_and_keeps_live_counters(open_loop,
                                                               policy):
-    """The buddy run's traces under another policy: single frees, retags
-    and bumps follow their pages, so the state stays valid (I1-I4, I6) and
-    every counter is the live run's; only the block ids differ.  (The JAX
-    package's replay applies the recorded ids as they are, which here
-    leaves duplicate ids on its free stack.)"""
+    """The buddy run's traces under another policy.  Their single frees,
+    retags and bumps name buddy's block ids, which ``policy`` grants
+    elsewhere: the JAX package's replay applies them as they are and ends
+    in a state that fails I2 (duplicate ids on the free list's stack, an
+    out-of-range id on bitmap's) with counters other than the live run's.
+    The port's replay refuses such a what-if.  Without those ops
+    (``drop_block_ids``) both packages replay to equal counters and one
+    bit-identical, valid state."""
+    from repro.core.freelist import validate_freelist as j_validate_freelist
     tme = open_loop["tme"]
     live = tme.service.tenant_report(tme.alloc)
     for name in ("port_file", "jax_file"):
-        res = replay_trace(load_trace(open_loop[name]), policy=policy,
-                           device="cpu")
-        validate_freelist(res.state)
-        assert res.report == live, (name, policy)
-        assert not torch.equal(res.state.owner, tme.alloc.owner)
+        trace = load_trace(open_loop[name])
+        assert trace.names_block_ids
+        bad = jtrace.replay_trace(jtrace.load_trace(open_loop[name]),
+                                  policy=policy)
+        with pytest.raises(AssertionError, match="I2"):
+            j_validate_freelist(bad.state)
+        assert bad.report != live
+        with pytest.raises(ValueError, match="names block ids"):
+            replay_trace(trace, policy=policy, device="cpu")
+
+        neutral = trace.drop_block_ids()
+        assert not neutral.names_block_ids
+        assert (neutral.bursts, neutral.windows) == \
+            (trace.bursts, trace.windows)
+        assert 0 < neutral.ops < trace.ops
+        got = replay_trace(neutral, policy=policy, device="cpu")
+        want = jtrace.replay_trace(neutral, policy=policy)
+        assert got.report == want.report, (name, policy)
+        for field in FreeListState._fields:
+            np.testing.assert_array_equal(
+                getattr(got.state, field).numpy(),
+                np.asarray(getattr(want.state, field)),
+                err_msg=f"{name} under {policy}: {field}")
+        validate_freelist(got.state)
+        j_validate_freelist(want.state)
+
+
+def test_replay_launcher_drops_block_ids_for_a_what_if(open_loop, capsys):
+    """``launch.replay`` on the CPU: the recorded policy replays the trace
+    as it is; another policy replays it without its block-naming ops, and
+    says so."""
+    from repro_torch.launch.replay import main as replay_main
+    path = str(open_loop["port_file"])
+    replay_main([path, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "policy=buddy" in out and "without" not in out
+    replay_main([path, "--device", "cpu", "--policy", "bitmap"])
+    out = capsys.readouterr().out
+    assert "under bitmap: without the single frees, retags and bumps" in out
+    assert "policy=bitmap" in out
 
 
 def test_live_counters_equal_replay_counters(open_loop):

@@ -4,7 +4,10 @@ the JAX package's, on the CPU, with no model.
 * The recorder sees every commit, retag and refcount bump of an
   ``AllocService`` in mutation order, one host copy of each queue, and
   changes no token and no state; a compaction pass rides the trace as
-  retags and bumps, and a replay under another policy follows it.
+  retags and bumps under buddy, and ``certify_complete`` refuses a trace
+  of a run compacted under the free list, whose stack rebuild no event
+  carries.  A what-if replay of a trace that names block ids is refused;
+  without those ops (``drop_block_ids``) it matches the JAX package's.
 * A trace written by each package replays in both under all three
   policies: the two writers' files are byte-identical, the replays give
   equal per-tenant counters and a bit-identical final state.  The stream
@@ -24,8 +27,8 @@ from repro_torch.alloc import ALLOC_POLICIES, AllocService  # noqa: E402
 from repro_torch.core.freelist import FreeListState  # noqa: E402
 from repro_torch.core.packets import (FREE_ALL, OP_FREE, OP_MALLOC,  # noqa: E402
                                       OP_MALLOC_RUN, OP_NOP, OP_REFILL)
-from repro_torch.loadgen import (load_trace, record_service,  # noqa: E402
-                                 replay_trace, save_trace)
+from repro_torch.loadgen import (AllocTrace, load_trace,  # noqa: E402
+                                 record_service, replay_trace, save_trace)
 
 
 def stream_trace(header_policy="buddy", n=24, seed=0):
@@ -134,9 +137,9 @@ def test_load_rejects_foreign_and_other_versions(tmp_path):
         load_trace(tmp_path / "v")
 
 
-def compacting_run(record: bool):
+def compacting_run(record: bool, policy: str = "buddy"):
     """A port-only open-loop run (smoke deepseek-7b, 2 shards of 2 lanes,
-    buddy, alias-mode prefix caches, preemption on) with every shard
+    ``policy``, alias-mode prefix caches, preemption on) with every shard
     compacted after every second window; ``(engine, report, moves,
     recorder)``."""
     from repro_torch.configs import smoke_config
@@ -152,7 +155,7 @@ def compacting_run(record: bool):
                      sched_cfg=make_scheduler_config(cfg, kvcfg,
                                                      max_prompt_len=32),
                      quantum=2, preemption=True, prefix_cache=True,
-                     prefix_alias="alias", alloc_policy="buddy",
+                     prefix_alias="alias", alloc_policy=policy,
                      device="cpu")
     moves = []
     inner = me.step_window
@@ -220,10 +223,89 @@ def test_compaction_rides_the_trace(compacted_run):
 
 @pytest.mark.parametrize("policy", ["freelist", "bitmap"])
 def test_what_if_replay_follows_compaction(compacted_run, policy):
-    """Under another policy the compaction's relabels re-pair each lane's
-    pages: a valid state and the live run's counters."""
+    """The compacted buddy run under another policy: its retags and bumps
+    name buddy's ids, so the port refuses the what-if; without them
+    (``drop_block_ids``) the two packages replay to one valid state."""
     from repro_torch.core.freelist import validate_freelist
-    me, _, _, _, path = compacted_run
-    res = replay_trace(load_trace(path), policy=policy, device="cpu")
-    validate_freelist(res.state)
-    assert res.report == me.service.tenant_report(me.alloc)
+    _, _, _, trace, path = compacted_run
+    with pytest.raises(ValueError, match="names block ids"):
+        replay_trace(load_trace(path), policy=policy, device="cpu")
+    neutral = load_trace(path).drop_block_ids()
+    assert neutral.header == dict(trace.header, complete=None)
+    assert not any(ev[0] in ("retag", "bump") for ev in neutral.events)
+    got = replay_trace(neutral, policy=policy, device="cpu")
+    want = jtrace.replay_trace(neutral, policy=policy)
+    assert got.report == want.report
+    for field in FreeListState._fields:
+        np.testing.assert_array_equal(getattr(got.state, field).numpy(),
+                                      np.asarray(getattr(want.state, field)),
+                                      err_msg=f"{policy}: {field}")
+    validate_freelist(got.state)
+
+
+def test_certify_refuses_compaction_under_the_free_list():
+    """Under the free list a compaction pass's stack rebuild is in no
+    event: the recorded replay ends with the live run's owner rows but
+    another stack, one that fails I2.  ``certify_complete`` refuses the
+    trace; an uncompacting free-list run certifies."""
+    from repro_torch.core.freelist import validate_freelist
+    from repro_torch.loadgen import certify_complete
+    me, rep, moves, rec = compacting_run(record=True, policy="freelist")
+    assert rep.completed == 12 and sum(moves) > 0
+    trace = rec.finish()
+    with pytest.raises(ValueError, match="compaction moved"):
+        certify_complete(trace, me.engines, me.stats.window_bursts)
+    res = replay_trace(trace, device="cpu")
+    assert torch.equal(res.state.owner, me.alloc.owner)
+    assert not torch.equal(res.state.free_stack, me.alloc.free_stack)
+    with pytest.raises(AssertionError, match="I2"):
+        validate_freelist(res.state)
+    for e in me.engines:
+        e.stats.compaction_moves = 0      # as if no pass had moved a page
+    assert certify_complete(trace, me.engines, me.stats.window_bursts) \
+        .header["complete"] is True
+
+
+def test_drop_block_ids_keeps_what_every_policy_reads_alike(tmp_path):
+    """``drop_block_ids`` turns single frees into NOPs and leaves retags
+    and bumps out; bursts, windows and every other packet stay, and the
+    result replays alike in both packages under all three policies."""
+    trace = stream_trace(n=16, seed=5)
+    assert not AllocTrace(trace.header, trace.events).names_block_ids
+    rng = np.random.RandomState(6)
+    events = []
+    for ev in trace.events:
+        if ev[0] == "burst":
+            _, r, op, lane, cls, arg = ev
+            single = rng.rand(op.shape[0]) < 0.3
+            op = np.where(single, OP_FREE, op).astype(np.int32)
+            arg = np.where(single, rng.randint(0, 24, op.shape[0]),
+                           arg).astype(np.int32)
+            ev = ("burst", r, op, lane, cls, arg)
+        events.append(ev)
+    events.insert(3, ("retag", 0, np.arange(2, dtype=np.int32), 1 << 30))
+    events.insert(5, ("bump", 2, np.arange(3, dtype=np.int32), 1))
+    named = AllocTrace(header=trace.header, events=events)
+    assert named.names_block_ids
+    save_trace(named, tmp_path / "named.trc")
+    neutral = load_trace(tmp_path / "named.trc").drop_block_ids()
+    assert not neutral.names_block_ids
+    assert (neutral.bursts, neutral.windows) == (named.bursts, named.windows)
+    n_single = sum(int(np.sum((ev[2] == OP_FREE) & (ev[5] >= 0)))
+                   for ev in events if ev[0] == "burst")
+    assert n_single > 0 and neutral.ops == named.ops - n_single
+    kept = [ev for ev in events if ev[0] != "retag" and ev[0] != "bump"]
+    for a, b in zip(neutral.events, kept):
+        if a[0] == "burst":
+            single = (b[2] == OP_FREE) & (b[5] >= 0)
+            for x, y in zip(a[2:], b[2:]):
+                np.testing.assert_array_equal(x, np.where(single, 0, y))
+    for policy in ALLOC_POLICIES:
+        got = replay_trace(neutral, policy=policy, device="cpu")
+        want = jtrace.replay_trace(neutral, policy=policy)
+        assert got.report == want.report, policy
+        for field in FreeListState._fields:
+            np.testing.assert_array_equal(
+                getattr(got.state, field).numpy(),
+                np.asarray(getattr(want.state, field)),
+                err_msg=f"{policy}: {field}")
