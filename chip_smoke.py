@@ -35,7 +35,14 @@ Phases, each failing loudly (non-zero exit, no result line):
                131072 pages), beside the launch floor (a one-element fill);
                the multi-engine bursts (a merged window burst over four
                classes, a FREE_ALL over aliased pages, the in-step R = 1
-               emergency burst) bit for bit; flash prefill over a cached
+               emergency burst) bit for bit; zamba2-1.2b's bursts at its
+               serving pool bit for bit, three tenants (KV pages, state
+               slots, scratch) on one engine (C = 3: admission, gated
+               decode, release) and on two shards (C = 6: admissions and a
+               merged release), nothing in use after a release, the C = 3
+               admission and the C = 6 release timed; the paged and flash
+               kernels also at zamba2-1.2b's shared-block shapes (hd 64,
+               H = KV = 32), timed there too; flash prefill over a cached
                prefix (query offsets 8-1200) in f32 and bf16, offset 0
                bit-identical to the call without one, and one offset
                shape per architecture timed; the bitmap and buddy policies
@@ -58,6 +65,18 @@ Phases, each failing loudly (non-zero exit, no result line):
 4b. serve    -- gemma3-1b at its published widths (26 layers, windows of
                512 on five layers in six, GQA 4:1) the same way, with
                prompts of 600-1500 tokens so the window binds;
+4f. hybrid   -- zamba2-1.2b at its published widths (38 Mamba2 layers,
+               d_model 2048, one shared attention block every 6 layers:
+               6 KV layers of 32 heads x 64) the same way, bf16, 4 lanes,
+               8 prompts of 600-1500 tokens, 32 new tokens: support-core
+               launches == commits, paged == engine-steps x 6, flash ==
+               prefill passes x 6, every tenant (``kv_pages``,
+               ``state_slots``, ``scratch``) empty at the end; prints
+               tokens/s, the median step and prefill pass, peak and
+               per-part memory beside the card; then in f32 with TF32
+               off, 8 decode steps fed given tokens after a 700-token
+               prompt against the full forward (max |decode - forward| /
+               max |logit| <= 2e-4);
 4c. multi    -- deepseek-7b at full width (phase 4's weights) as two engine
                shards of four lanes on one support core, burst windows of
                4 steps, preemption on, per-shard prefix caches in alias
@@ -92,8 +111,9 @@ Phases, each failing loudly (non-zero exit, no result line):
                what-if of the whole trace refused; prints each replay's
                wall time and bursts/s;
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
-               through the port on ``cuda`` and on ``cpu``, for both
-               architectures: allocator state and served tokens must be
+               through the port on ``cuda`` and on ``cpu``, for the three
+               architectures (zamba2-1.2b at 4 layers, the shared block
+               twice): allocator state and served tokens must be
                identical; then two shards with the cache on (alias mode
                for deepseek-7b, copy for gemma3-1b) on both devices:
                identical tokens and shared allocator state, and tokens
@@ -102,6 +122,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                window on both devices with one compaction pass after the
                second window: the shared allocator state identical after
                every window, and tokens equal to the free-list run's;
+               zamba2-1.2b, which no prefix cache serves, instead runs its
+               two shards without one under the free list and under buddy
+               (a compaction pass after the second window), window by
+               window on both devices, to the same checks;
 6.  result   -- the card's line again, one JSON line describing the
                kernels, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -140,14 +164,25 @@ WORKLOADS = {
                         new_tokens=16, prompt_lens=None),
     "gemma3-1b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
                       new_tokens=32, prompt_lens=(600, 1500)),
+    "zamba2-1.2b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
+                        new_tokens=32, prompt_lens=(600, 1500)),
 }
+# zamba2-1.2b's serving shapes: the shared block's paged decode (hd 64,
+# H = KV = 32, 16-token pages, 129-page tables, 6 KV layers) and flash
+# prefill (hd 64, G = 1); the teacher-forced check's prompt and steps
+ZAMBA_PAGED = (4, 32, 1, 64, 16, 129, 6, [1500, 1200, 900, 611])
+ZAMBA_FLASH = (4, 1200, 32, 32, 64)
+TEACHER = dict(prompt=700, steps=8, tol=2e-4)
 # phase 4c and the multi-engine runs of phase 5: two shards, shared-prefix
 # traffic (two 64-token prefixes, tails of 8-40 tokens)
 MULTI = dict(engines=2, quantum=4, seq=256, page=8, max_prompt=128,
              prefix=64, requests=16, small_requests=12, new_tokens=16)
-# the reduced configs of phase 5 (gemma3: one local and one global layer)
+# the reduced configs of phase 5 (gemma3: one local and one global layer;
+# zamba2: 4 layers, the shared block after layers 1 and 3)
 SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
-SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128)}
+SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128),
+                 "zamba2-1.2b": None}
+SMALL_DEPTH = {"zamba2-1.2b": dict(num_layers=4, attn_every=2)}
 # a card-sized page pool: make_paged_config(gemma3-1b, seq_len=2048,
 # lanes=256, page_size=16) gives 35840 pages (14.2 GiB of bf16 KV) and 256
 # scratch slots; warm bursts put POOL_WARM pages in use across its lanes
@@ -467,6 +502,93 @@ def multi_engine_parity(dev, par: Parity) -> None:
           f"window C={state.num_classes} Q={widths[0]} R={R}, aliased "
           f"FREE_ALL Q={widths[2]}, emergency Q={widths[3]} R=1; "
           f"{plan_of(widths[0], state.num_classes, 512)})")
+
+
+def zamba2_bursts(dev, par: Parity) -> dict:
+    """zamba2-1.2b's support-core bursts at its serving pool
+    (``make_paged_config`` at full width, seq 2048, 4 lanes, 16-token
+    pages: KV pages, then 4 state slots, then 4 scratch slots), kernel
+    against plain bit for bit.  One engine (C = 3): the admission burst as
+    ``admit_prefill_many`` stages it (a KV run for each lane's 600-1500
+    token prompt, a state slot, a scratch slot, the stash pre-charge), a
+    gated decode burst (emergency mallocs and refills) and the FREE_ALL
+    release of all three tenants.  Two shards on one service (C = 6): the
+    same admission on each, then one merged window burst releasing both
+    shards' lanes.  Nothing is in use after either release.  Returns the
+    admission at C = 3 and the release at C = 6, for timing."""
+    from repro_torch.alloc.service import AllocService
+    from repro_torch.configs import get_config
+    from repro_torch.core import paged_kv as pkv
+    from repro_torch.core.freelist import validate_freelist
+    from repro_torch.core.hmq import schedule
+    from repro_torch.models import make_paged_config
+    cfg, wl = get_config("zamba2-1.2b"), WORKLOADS["zamba2-1.2b"]
+    kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
+                              page_size=wl["page"], dtype=torch.bfloat16)
+    pre = kvcfg.stash_refill
+    lanes = torch.arange(SERVE_LANES, dtype=torch.int32, device=dev)
+    every = torch.ones(SERVE_LANES, dtype=torch.bool, device=dev)
+    prompts = np.random.RandomState(14).randint(600, 1501, SERVE_LANES)
+    n_pages = torch.as_tensor(-(-prompts // wl["page"]), dtype=torch.int32,
+                              device=dev)
+    R_admit = max(int(n_pages.max()), pre)
+    timed, n0 = {}, par.bursts
+
+    def run(state, burst, R, gated, name=None):
+        sched = schedule(burst.build_queue())[0]
+        if name:
+            timed[name] = (state, sched, R, gated)
+        state = par.step_scheduled(state, sched, R, gated=gated)
+        validate_freelist(state)
+        return state
+
+    def admit(svc, state, t, name=None):
+        b = svc.new_burst()
+        b.malloc_run(t.kv, lanes, n_pages)
+        b.malloc(t.state, lanes, 1)
+        b.malloc(t.scratch, lanes, 1)
+        b.refill(t.kv, lanes, pre)
+        return run(state, b, R_admit, False, name)
+
+    def none_used(state, what):
+        if int(state.used.sum()) != 0:
+            fail(f"zamba2 bursts: {state.used.tolist()} blocks in use after "
+                 f"the {what} release")
+
+    svc = AllocService(device=dev)
+    t = pkv.register_paged_tenants(svc, kvcfg)
+    if [h.name for h in t.handles] != ["kv_pages", "state_slots", "scratch"]:
+        fail(f"zamba2 tenants registered as {[h.name for h in t.handles]}")
+    state = admit(svc, svc.init_state(), t, "zamba2_admit_C3")
+    b = svc.new_burst()
+    b.malloc(t.kv, lanes, 1, where=torch.tensor([True, False, True, False],
+                                                device=dev))
+    b.refill(t.kv, lanes, pre, where=torch.tensor([False, True, True, False],
+                                                  device=dev))
+    state = run(state, b, pre, True)
+    b = svc.new_burst()
+    pkv.stage_release_ops(t, b, lanes, every)
+    none_used(run(state, b, 1, False), "C = 3")
+    c3 = state.num_classes
+
+    svc = AllocService(device=dev)
+    ts = [pkv.register_paged_tenants(svc, kvcfg, f"e{i}") for i in range(2)]
+    state = svc.init_state()
+    for t in ts:
+        state = admit(svc, state, t)
+    b = svc.new_burst()
+    for t in ts:
+        pkv.stage_release_ops(t, b, lanes, every)
+    none_used(run(state, b, 1, False, "zamba2_release_C6"), "C = 6")
+    print(f"  zamba2 bursts: {par.bursts - n0} bit-identical (C={c3}: "
+          f"admission Q={timed['zamba2_admit_C3'][1].capacity} "
+          f"R={R_admit}, gated decode, release; C={state.num_classes}: "
+          f"admission on each shard, merged release "
+          f"Q={timed['zamba2_release_C6'][1].capacity}; N="
+          f"{state.max_capacity}: "
+          f"{plan_of(timed['zamba2_admit_C3'][1].capacity, c3, state.max_capacity)}"
+          f"); nothing in use after either release")
+    return timed
 
 
 def device_ms(fn, n: int = 100) -> float:
@@ -837,12 +959,14 @@ def paged_parity(dev, errs: Errors) -> None:
                                op(*args, **kw),
                                paged_attention_plain(*args, **kw), dt)
                     n_cases += 1
-        # serving shapes: deepseek-7b, then gemma3-1b's local and global
-        # layers; lane 1 at a page boundary, lane 2 inactive, lane 3 short
+        # serving shapes: deepseek-7b, gemma3-1b's local and global layers,
+        # zamba2-1.2b's shared block; lane 1 at a page boundary, lane 2
+        # inactive, lane 3 short
         for (KV, G, hd, ps, P, L, seq), windows in (
                 ((32, 1, 128, 8, 33, 30, [119, 64, 40, 3]), (FULL,)),
                 ((1, 4, 256, 16, 129, 26, [1400, 1024, 700, 611]),
-                 (512, FULL))):
+                 (512, FULL)),
+                ((32, 1, 64, 16, 129, 6, [1500, 1024, 700, 611]), (FULL,))):
             case = paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P, L, seq,
                                    [True, True, False, True])
             for window in windows:
@@ -886,7 +1010,8 @@ def flash_parity(dev, errs: Errors) -> None:
         (1, 100, 100, 2, 1, 16, True, FULL),       # ragged Tq
         (4, 128, 128, 32, 32, 128, True, FULL),    # deepseek-7b prefill
         (4, 1536, 1536, 4, 1, 256, True, 512),     # gemma3-1b local layer
-        (4, 1536, 1536, 4, 1, 256, True, FULL)]    # gemma3-1b global layer
+        (4, 1536, 1536, 4, 1, 256, True, FULL),    # gemma3-1b global layer
+        (4, 1200, 1200, 32, 32, 64, True, FULL)]   # zamba2-1.2b shared block
     for dt in (torch.float32, torch.bfloat16):
         for B, Tq, Tk, H, KV, hd, causal, window in cases:
             q = rand(rng, (B, Tq, H, hd), dt, dev)
@@ -1194,12 +1319,25 @@ def full_width_params(dev, arch: str):
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
+    hybrid = ""
+    if cfg.family == "hybrid":
+        spec = params.spec
+        hybrid = (f"; Mamba2 d_inner {spec.d_inner}, {spec.heads} SSM heads "
+                  f"x {spec.head_dim}, state {spec.n_state}, one shared "
+                  f"attention block every {cfg.attn_every} layers "
+                  f"({cfg.num_attn_layers} KV layers)")
     print(f"  {arch}: {cfg.num_layers} layers (all), d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.attn_pattern} attention (window {cfg.window}), {cfg.act}, "
-          f"bf16; weights drawn in {time.perf_counter() - t0:.1f}s")
+          f"bf16{hybrid}; {param_gb(params):.2f} GB of weights drawn in "
+          f"{time.perf_counter() - t0:.1f}s")
     return cfg, params
+
+
+def param_gb(params) -> float:
+    return sum(p.numel() * p.element_size() for p in params.parameters()) \
+        / 1e9
 
 
 def zero_launches() -> None:
@@ -1230,6 +1368,7 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     launches in that run, set to 0 just before it."""
     wl = WORKLOADS[arch]
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     zero_launches()
     t0 = time.perf_counter()
     prefill_us: list = []
@@ -1241,7 +1380,7 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     check_served(eng, sched, reqs)
-    s, L = eng.stats, cfg.num_layers
+    s, L = eng.stats, cfg.num_attn_layers
     check_launches(arch, launches, dict(
         support_core_burst=s.commits,
         paged_decode_attention=s.decode_steps * L,
@@ -1261,17 +1400,79 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     med = statistics.median(step_us) / 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
     prefill_ms = statistics.median(prefill_us) / 1e3
+    card = card_line()
     print(f"  decode {tps:.1f} tokens/s, median decode step {med:.2f} ms, "
-          f"peak GPU memory {peak:.2f} GiB")
+          f"peak GPU memory {peak:.2f} GiB in the process, {peak - held:.2f}"
+          f" GiB above the {held:.2f} GiB held before the serve (weights "
+          f"included there) ({card})")
     print(f"  prefill: {len(prefill_us)} passes, median {prefill_ms:.2f} ms "
           f"wall (each {', '.join(f'{u / 1e3:.2f}' for u in prefill_us)} "
-          f"ms)")
+          f"ms; {card})")
+    paged, rec = eng.state.paged, eng.state.rec
+    pool_gb = 2 * paged.k_pages.numel() * paged.k_pages.element_size() / 1e9
+    rec_gb = 0.0 if rec is None else sum(
+        t.numel() * t.element_size() for t in rec) / 1e9
+    print(f"  memory: weights {param_gb(params):.2f} GB, KV pool {pool_gb:.2f}"
+          f" GB ({cfg.num_attn_layers} KV layers x {eng.kvcfg.num_pages + 1} "
+          f"pages), recurrent state {rec_gb:.3f} GB")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
+        if rep["used"] or rep["alloc_count"] != rep["free_count"]:
+            fail(f"{arch}: tenant {name} ends with {rep['used']} in use "
+                 f"({rep['alloc_count']} allocs, {rep['free_count']} frees)")
+    if eng.state.rec is not None:
+        slots = eng.tenant_report()["state_slots"]["alloc_count"]
+        if slots != s.admitted or (paged.state_slot >= 0).any():
+            fail(f"{arch}: {slots} state slots allocated for {s.admitted} "
+                 f"admissions, or a lane still holds one")
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
-                peak_gib=peak, median_prefill_ms=prefill_ms)
+                peak_gib=peak, serve_gib=peak - held,
+                median_prefill_ms=prefill_ms)
+
+
+def teacher_forced(dev) -> list:
+    """zamba2-1.2b at full width in f32 with TF32 off: a 700-token prompt
+    admitted through the engine, then 8 decode steps fed given tokens (the
+    seed overwritten, so no token is folded twice), each step's logits
+    against the full forward of the same tokens.  Fails above
+    ``TEACHER["tol"]`` of max |decode - forward| / max |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_paged_config
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("zamba2-1.2b")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    n, steps = TEACHER["prompt"], TEACHER["steps"]
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, n + steps) \
+        .astype(np.int32)
+    kvcfg = make_paged_config(cfg, seq_len=1024, lanes=1, page_size=16,
+                              dtype=torch.float32)
+    eng = ServingEngine(cfg, kvcfg, params, device=dev)
+    if not eng.admit(0, toks[:n]):
+        fail("zamba2-1.2b teacher-forced: the admission failed")
+    errs = []
+    for t in range(steps):
+        tokens = eng.state.tokens.clone()
+        tokens[0] = int(toks[n + t])
+        eng.state = eng.state._replace(tokens=tokens)
+        eng.state, logits, _ = eng._decode(eng.params, eng.state)
+        ref = forward(params, torch.as_tensor(toks[:n + t + 1],
+                                              device=dev)[None])[0, -1]
+        errs.append(float((logits[0] - ref).abs().max() / ref.abs().max()))
+    print(f"  zamba2-1.2b teacher-forced, f32, TF32 off: {steps} decode "
+          f"steps after a {n}-token prompt; max |decode - forward| / max "
+          f"|logit| per step: {', '.join(f'{e:.2e}' for e in errs)} "
+          f"(tolerance {TEACHER['tol']:g})")
+    if not max(errs) <= TEACHER["tol"]:
+        fail(f"zamba2-1.2b teacher-forced decode differs from the forward "
+             f"by {max(errs):.3e}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return errs
 
 
 def timed_method(obj, name: str) -> list:
@@ -1707,7 +1908,8 @@ def device_vs_cpu(dev, arch: str) -> None:
     from repro_torch.models import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch),
+                              **SMALL_DEPTH.get(arch, {}))
     if cfg.attn_pattern == "local_global":
         cfg = dataclasses.replace(cfg, local_per_global=1)
     params_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
@@ -1736,18 +1938,27 @@ def device_vs_cpu(dev, arch: str) -> None:
         if not torch.equal(getattr(ag, field).cpu(), getattr(ac, field)):
             fail(f"{arch}: allocator state field {field} differs between "
                  f"cuda and cpu")
-    for field in ("block_tables", "seq_lens", "active", "scratch_slot"):
+    for field in ("block_tables", "seq_lens", "active", "scratch_slot",
+                  "state_slot"):
         if not torch.equal(getattr(eg.state.paged, field).cpu(),
                            getattr(ec.state.paged, field)):
             fail(f"{arch}: paged state field {field} differs between cuda "
                  f"and cpu")
     prompts = [r.prompt_len for r in rg]
     print(f"  {arch} ({cfg.num_layers} layers, windows "
-          f"{[cfg.window] if cfg.window else 'none'}): cuda and cpu agree on "
+          f"{[cfg.window] if cfg.window else 'none'}"
+          f"{f', attention every {cfg.attn_every}' if cfg.attn_every else ''}"
+          f"): cuda and cpu agree on "
           f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
           f"(prompts {min(prompts)}-{max(prompts)}), allocator state "
           f"bit-identical")
-    multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+    if cfg.family == "hybrid":
+        # a recurrent family never hits a prefix cache: two shards without
+        # one, under the free list and under buddy
+        policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
+                             policies=("freelist", "buddy"), cache=False)
+    else:
+        multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
 
 
 def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
@@ -1799,19 +2010,22 @@ def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
 
 
 def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
-                         want: dict) -> None:
-    """Phase 5 under the bitmap and buddy policies: two shards with the
-    cache on, stepped window by window on the card and on the CPU, one
-    compaction pass after the second window: the shared allocator state
-    identical after every window, the same pages moved, and tokens
-    identical between the devices and to the free-list run's ``want``."""
+                         want: dict | None, policies=PLAIN_POLICIES,
+                         cache: bool = True) -> None:
+    """Phase 5 under each of ``policies``: two shards (with the cache on
+    unless ``cache`` is false), stepped window by window on the card and
+    on the CPU, one compaction pass after the second window under any
+    policy but the free list: the shared allocator state identical after
+    every window, the same pages moved, and tokens identical between the
+    devices and to ``want`` (the free-list run's; ``None``: the first
+    policy's run sets it)."""
     alias = cfg.attn_pattern == "full"
-    for policy in PLAIN_POLICIES:
+    for policy in policies:
         runs = {}
         for name, p, d in (("cuda", params_gpu, dev),
                            ("cpu", params_cpu, "cpu")):
             reqs = shared_prefix_requests(cfg, MULTI["small_requests"])
-            me = multi_engine(cfg, p, torch.float32, d, True, alias,
+            me = multi_engine(cfg, p, torch.float32, d, cache, alias,
                               policy=policy)
             me.submit(reqs, max_new_tokens=MULTI["new_tokens"])
             runs[name] = (me, reqs)
@@ -1824,7 +2038,7 @@ def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
             if progress != (True, True):
                 fail(f"{arch} {policy}: window {windows} progressed "
                      f"{progress} (cuda, cpu)")
-            if windows == 2:
+            if windows == 2 and policy != "freelist":
                 moved = (mg.compact(), mc.compact())
                 if moved[0] != moved[1]:
                     fail(f"{arch} {policy}: compaction moved {moved[0]} "
@@ -1841,15 +2055,29 @@ def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
         og = {r.rid: list(r.output) for r in rg}
         if og != {r.rid: list(r.output) for r in rc}:
             fail(f"{arch} {policy}: tokens differ between cuda and cpu")
+        want = og if want is None else want
         if og != want:
             fail(f"{arch} {policy}: tokens differ from the free-list run's")
+        roll = mg.tenant_rollup()
+        cached = sum(e.cache.pages for e in mg.engines if e.cache is not None)
+        if any(d["used"] != (cached if name == "kv_pages" else 0)
+               for name, d in roll.items()):
+            fail(f"{arch} {policy}: tenants in use at the end beyond the "
+                 f"caches' {cached} pages: {roll}")
         runs_len = [e.stats.mean_run_len for e in mg.engines]
-        print(f"  {arch} two shards under {policy}: cuda and cpu agree on "
+        compacted = "no compaction" if moved is None else \
+            f"compaction after window 2 moved {moved[0]} pages"
+        slots = roll.get("state_slots")
+        slots = "" if slots is None else (
+            f"; state_slots allocs {slots['alloc_count']} frees "
+            f"{slots['free_count']} used {slots['used']}")
+        print(f"  {arch} two shards under {policy}"
+              f"{'' if cache else ', no cache'}: cuda and cpu agree on "
               f"{sum(map(len, og.values()))} tokens and the shared "
-              f"allocator state after each of {windows} windows; "
-              f"compaction after window 2 moved {moved[0]} pages; tokens "
-              f"equal the free-list run's; mean run length "
-              f"{', '.join(f'{x:.2f}' for x in runs_len)}")
+              f"allocator state (C={mg.alloc.num_classes}) after each of "
+              f"{windows} windows; {compacted}; tokens equal the free-list "
+              f"run's; mean run length "
+              f"{', '.join(f'{x:.2f}' for x in runs_len)}{slots}")
 
 
 def kernel_signature(name: str) -> str:
@@ -1901,6 +2129,14 @@ def print_ptxas(kernels) -> None:
         fail(f"kernels that must not spill do: {', '.join(spills)}")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1910,10 +2146,7 @@ def main() -> None:
     from repro_torch.kernels.support_core.ops import KERNEL
 
     print("== 1. card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1929,8 +2162,9 @@ def main() -> None:
     print("== 3. kernels against plain versions")
     par = kernel_parity(dev)
     multi_engine_parity(dev, par)
+    zamba_cases = zamba2_bursts(dev, par)
     t_burst = {name: time_burst(name, *case)
-               for name, case in burst_cases(dev).items()}
+               for name, case in {**burst_cases(dev), **zamba_cases}.items()}
     floor_ms = launch_floor_ms()
     print("== 3. the bitmap and buddy policies: card against cpu")
     pol_checked = policy_parity(dev)
@@ -1949,11 +2183,13 @@ def main() -> None:
         "gemma3-1b local": time_paged(dev, 4, 1, 4, 256, 16, 129, 26,
                                       [1400, 1024, 700, 611], 512),
         "gemma3-1b global": time_paged(dev, 4, 1, 4, 256, 16, 129, 26,
-                                       [1400, 1024, 700, 611], FULL)}
+                                       [1400, 1024, 700, 611], FULL),
+        "zamba2-1.2b": time_paged(dev, *ZAMBA_PAGED, FULL)}
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
-        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL)}
+        "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL),
+        "zamba2-1.2b": time_flash(dev, *ZAMBA_FLASH, FULL)}
     for name, (T, P, *shape) in OFFSET_SHAPES.items():
         t_flash[name] = time_flash(dev, 4, T, *shape, P=P)
 
@@ -1984,9 +2220,18 @@ def main() -> None:
     served["gemma3-1b"] = serve_full_width(dev, "gemma3-1b", cfg, params)
     del params
     torch.cuda.empty_cache()
+    print("== 4f. serve zamba2-1.2b at full width (38 Mamba2 layers, one "
+          "shared attention block after every 6th), then decode against "
+          "forward in f32")
+    cfg, params = full_width_params(dev, "zamba2-1.2b")
+    served["zamba2-1.2b"] = serve_full_width(dev, "zamba2-1.2b", cfg,
+                                             params)
+    del params
+    torch.cuda.empty_cache()
+    served["zamba2-1.2b"]["teacher_forced_rel_err"] = teacher_forced(dev)
 
     print("== 5. device against cpu")
-    for arch in ("deepseek-7b", "gemma3-1b"):
+    for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b"):
         device_vs_cpu(dev, arch)
 
     print("== 6. result")
@@ -2016,6 +2261,10 @@ def main() -> None:
              large_shape=t_burst["large"],
              pool_shapes={k: v for k, v in t_burst.items()
                           if k.startswith("pool_")},
+             hybrid_shapes={k: v for k, v in t_burst.items()
+                            if k.startswith("zamba2_")},
+             zamba2_serve={k: v for k, v in served["zamba2-1.2b"].items()
+                           if k != "launches"},
              plain_policies=dict(card_vs_cpu_bursts=pol_checked,
                                  times=t_pol),
              open_loop={k: v for k, v in

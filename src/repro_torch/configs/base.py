@@ -2,9 +2,10 @@
 
 One :class:`ArchConfig` describes an architecture; ``configs/<id>.py``
 instantiates the published numbers and :func:`get_config` resolves an arch
-id.  The port carries the dense family so far -- ``deepseek-7b`` (full
-attention) and ``gemma3-1b`` (local:global windows, GQA); the other arch
-modules are ported with their model families (ROADMAP.md, Queue 1).
+id.  The port carries the dense family -- ``deepseek-7b`` (full attention)
+and ``gemma3-1b`` (local:global windows, GQA) -- and the hybrid family --
+``zamba2-1.2b`` (Mamba2 layers with one shared attention block); the other
+arch modules are ported with their model families (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ from typing import Optional
 _REGISTRY: dict[str, "ArchConfig"] = {}
 
 #: arch ids the port can build today
-ARCH_IDS = ("deepseek-7b", "gemma3-1b")
+ARCH_IDS = ("deepseek-7b", "gemma3-1b", "zamba2-1.2b")
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
     "gemma3-1b": "gemma3_1b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 

@@ -17,10 +17,13 @@ sync) sits on the decode path.  The pools are updated IN PLACE -- a JAX
 state is a value, a port state shares its pools with the state it came
 from -- while the allocator metadata stays out of place.
 
-Size classes: ``kv_pages`` is class 0 and the per-lane ``scratch`` tenant
-the next one.  On a service shared by N engine shards each shard registers
-its own namespaced pair (:func:`register_paged_tenants`), and every
-function here indexes metadata through the tenant handles.
+Size classes, in registration order: ``kv_pages`` is class 0, then the
+per-lane recurrent-state slots (``state_slots``, class 1, for the hybrid
+family), then the per-lane ``scratch`` workspace (class 1, or 2
+behind the state slots).  On a service shared by N engine shards each
+shard registers its own namespaced set (:func:`register_paged_tenants`),
+and every function here indexes metadata through the tenant handles,
+never through a class number.
 
 Deferred refills (``decode_append(defer_refill=True)``) return the step's
 refill traffic as :class:`PendingDecodeOps` for the multi-engine burst
@@ -30,10 +33,9 @@ the cached K/V into fresh pages or splices the cached page ids into the
 lane's block table with a refcount bump
 (``admit_prefill_many(prefix_blocks=)``).  :func:`compact_kv` repacks
 sole-owner lane pages between burst windows so the free space coalesces
-(:func:`extent_stats` counts the runs admission got).  This slice serves
-the dense family; the recurrent-state tenant and sliding-window recycling
-(and with it the overflow flushes that ``PendingDecodeOps`` carries) wait
-for later slices (ROADMAP.md, Queue 1).
+(:func:`extent_stats` counts the runs admission got).  Sliding-window
+recycling (and with it the overflow flushes that ``PendingDecodeOps``
+carries) waits for a later slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -57,7 +59,9 @@ from .support_core import StepStats
 
 I32 = torch.int32
 
+#: Tenant names the paged KV registers on its service, in class order.
 KV_TENANT = "kv_pages"
+STATE_TENANT = "state_slots"
 SCRATCH_TENANT = "scratch"
 
 #: Owner id of KV pages demoted into the prefix cache: far above any lane
@@ -77,7 +81,9 @@ class PagedKVConfig:
     max_lanes: int
     max_pages_per_lane: int
     dtype: torch.dtype = torch.bfloat16
-    # per-lane workspace slots: a second tenant of the one support-core
+    # per-lane recurrent-state slots (hybrid; 0 = no such tenant)
+    state_slots: int = 0
+    # per-lane workspace slots: the last tenant of the one support-core
     scratch_slots: int = 0
     # per-lane page stash (0 disables the tier)
     stash_size: int = 0
@@ -99,6 +105,7 @@ class PagedKVState(NamedTuple):
     v_pages: torch.Tensor         # same
     stash: LaneStashState         # per-lane page stash
     scratch_slot: torch.Tensor    # [max_lanes] int32 workspace block (NO_BLOCK if none)
+    state_slot: torch.Tensor      # [max_lanes] int32 recurrent-state slot (NO_BLOCK if none)
 
 
 class DecodeStats(NamedTuple):
@@ -123,25 +130,31 @@ class PagedTenants(NamedTuple):
 
     service: AllocService
     kv: TenantHandle
+    state: Optional[TenantHandle] = None
     scratch: Optional[TenantHandle] = None
 
     @property
     def handles(self) -> tuple:
-        return tuple(t for t in (self.kv, self.scratch) if t is not None)
+        """The registered handles, in class order."""
+        return tuple(t for t in (self.kv, self.state, self.scratch)
+                     if t is not None)
 
 
 def register_paged_tenants(svc: AllocService, cfg: PagedKVConfig,
                            namespace: str = "") -> PagedTenants:
     """Register this config's tenant set on ``svc`` in class order
-    (``kv_pages``, then ``scratch``), optionally namespaced: each shard of
-    a multi-engine deployment calls this once on the one shared service
-    before ``init_state``."""
+    (``kv_pages``, then ``state_slots`` and ``scratch`` where configured),
+    optionally namespaced: each shard of a multi-engine deployment calls
+    this once on the one shared service before ``init_state``."""
     spec = [(KV_TENANT, cfg.num_pages)]
+    if cfg.state_slots:
+        spec.append((STATE_TENANT, cfg.state_slots))
     if cfg.scratch_slots:
         spec.append((SCRATCH_TENANT, cfg.scratch_slots))
     by_base = {t.base_name: t
                for t in svc.register_tenants(spec, namespace=namespace)}
     return PagedTenants(service=svc, kv=by_base[KV_TENANT],
+                        state=by_base.get(STATE_TENANT),
                         scratch=by_base.get(SCRATCH_TENANT))
 
 
@@ -149,7 +162,7 @@ def paged_tenants(cfg: PagedKVConfig, device: DeviceLike = None,
                   policy: str = "freelist") -> PagedTenants:
     """A fresh service on ``device`` running ``policy``, with this
     config's tenants registered in class order: ``kv_pages`` (class 0),
-    then ``scratch``."""
+    then ``state_slots`` and ``scratch`` where configured."""
     return register_paged_tenants(AllocService(policy=policy, device=device),
                                   cfg)
 
@@ -173,6 +186,7 @@ def init_paged_kv(cfg: PagedKVConfig, tenants: PagedTenants,
         v_pages=torch.zeros(shape, dtype=cfg.dtype, device=dev),
         stash=init_stash(L, cfg.stash_size, dev),
         scratch_slot=torch.full((L,), NO_BLOCK, dtype=I32, device=dev),
+        state_slot=torch.full((L,), NO_BLOCK, dtype=I32, device=dev),
     )
 
 
@@ -194,11 +208,14 @@ def admit_prefill_many(
 ) -> tuple[PagedKVState, BurstStats]:
     """Admit B prefilled sequences with a single support-core step.
 
-    The burst carries one KV-page malloc per lane, one scratch malloc when
-    the config has that tenant, and -- with the stash on -- one pre-charge
-    refill per lane.  A sequence whose pages overflow its block-table row
-    gets overwide packets, so all of them fail.  The KV of admitted lanes
-    is written into their pages in place.
+    The burst carries one KV-page malloc per lane, one state-slot malloc
+    and one scratch malloc when the config has those tenants, and -- with
+    the stash on -- one pre-charge refill per lane.  A lane is admitted
+    only when every packet but the pre-charge succeeded; the grants of a
+    lane that failed stay owned by it until its FREE_ALL (the engine
+    releases failed lanes at once).  A sequence whose pages overflow its
+    block-table row gets overwide packets, so all of them fail.  The KV
+    of admitted lanes is written into their pages in place.
 
     Alias splice: with ``prefix_blocks`` / ``prefix_lens`` (page-aligned,
     padded with ``NO_BLOCK``), ``k`` / ``v`` / ``lengths`` describe the
@@ -229,9 +246,13 @@ def admit_prefill_many(
     burst = svc.new_burst()
     t_kv = burst.malloc_run(tenants.kv, lanes,
                             n=torch.where(fits, n_pages, forced_fail))
+    t_state = burst.malloc(tenants.state, lanes,
+                           n=torch.where(fits, one, forced_fail)) \
+        if cfg.state_slots else None
     t_scratch = burst.malloc(tenants.scratch, lanes,
                              n=torch.where(fits, one, forced_fail)) \
         if cfg.scratch_slots else None
+    slot_tickets = [t for t in (t_state, t_scratch) if t is not None]
     if cfg.stash_size:
         t_pre = burst.refill(tenants.kv, lanes,
                              n=torch.where(fits, one * pre, forced_fail))
@@ -241,8 +262,8 @@ def admit_prefill_many(
         # a failed pre-charge is benign: "failed" counts required packets
         kv_required = (~res.ok_for(t_kv)).sum(dtype=I32)
         required = kv_required
-        if t_scratch is not None:
-            required = required + (~res.ok_for(t_scratch)).sum(dtype=I32)
+        for t in slot_tickets:
+            required = required + (~res.ok_for(t)).sum(dtype=I32)
         pt = stats.per_tenant
         failed = pt.failed.clone()
         failed[tenants.kv.size_class] = kv_required
@@ -251,8 +272,8 @@ def admit_prefill_many(
 
     pages = res.blocks_for(t_kv)[:, :max_pages]                        # [B, P]
     got = res.ok_for(t_kv)
-    if t_scratch is not None:
-        got = got & res.ok_for(t_scratch)
+    for t in slot_tickets:
+        got = got & res.ok_for(t)
     M = cfg.max_pages_per_lane
     if prefix_blocks is None:
         p_lim = min(max_pages, M)
@@ -296,12 +317,11 @@ def admit_prefill_many(
             B * max_pages, L, ps, cfg.kv_heads, cfg.head_dim)
         pool[dst] = src.to(cfg.dtype)
 
-    scratch = state.scratch_slot.clone()
-    if t_scratch is not None:
-        scratch[lanes_l] = torch.where(got, res.blocks_for(t_scratch)[:, 0],
-                                       NO_BLOCK)
-    else:
-        scratch[lanes_l] = NO_BLOCK
+    def slot_rows(rows: torch.Tensor, ticket) -> torch.Tensor:
+        rows = rows.clone()
+        rows[lanes_l] = NO_BLOCK if ticket is None else torch.where(
+            got, res.blocks_for(ticket)[:, 0], NO_BLOCK)
+        return rows
     stash = state.stash
     if cfg.stash_size:
         stash = stash_set_rows(stash, lanes, res.blocks_for(t_pre)[:, :pre],
@@ -312,7 +332,8 @@ def admit_prefill_many(
     active[lanes_l] = got
     new = state._replace(alloc=alloc, block_tables=block_tables,
                          seq_lens=seq_lens, active=active, stash=stash,
-                         scratch_slot=scratch)
+                         scratch_slot=slot_rows(state.scratch_slot, t_scratch),
+                         state_slot=slot_rows(state.state_slot, t_state))
     return new, stats
 
 
@@ -772,7 +793,8 @@ def stage_single_frees(tenants: PagedTenants, burst, blocks) -> None:
 def clear_released_lanes(state: PagedKVState,
                          release_mask: torch.Tensor) -> PagedKVState:
     """Clear released lanes' metadata rows (block table, seq_lens, active,
-    scratch slot, stash row); their blocks return through FREE_ALL."""
+    state and scratch slots, stash row); their blocks return through
+    FREE_ALL."""
     keep = ~release_mask
     return state._replace(
         block_tables=torch.where(release_mask[:, None], NO_BLOCK,
@@ -781,6 +803,7 @@ def clear_released_lanes(state: PagedKVState,
         active=state.active & keep,
         stash=stash_clear(state.stash, release_mask),
         scratch_slot=torch.where(keep, state.scratch_slot, NO_BLOCK),
+        state_slot=torch.where(keep, state.state_slot, NO_BLOCK),
     )
 
 

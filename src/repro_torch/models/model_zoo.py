@@ -1,8 +1,9 @@
 """Public model API of the port (counterpart of
 :mod:`repro.models.model_zoo`).
 
-  init_params(cfg, seed, dtype, device)  -- DenseLM from a seeded generator
-  params_from_numpy(tree, cfg, device)   -- DenseLM from the JAX package's
+  init_params(cfg, seed, dtype, device)  -- the family's LM (DenseLM or
+                                            HybridLM) from a seeded generator
+  params_from_numpy(tree, cfg, device)   -- the same from the JAX package's
                                             parameter tree as numpy arrays
   make_paged_config(cfg, seq, lanes)     -- PagedKVConfig for a decode shape
 """
@@ -18,7 +19,8 @@ from ..configs.base import ArchConfig
 from ..core.lane_stash import autotune_stash
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
-from .transformer import DenseLM, init_lm_params
+from .mamba2 import F32_PARAMS
+from .transformer import init_lm_params, lm_class
 
 DEFAULT_PAGE_SIZE = 64
 
@@ -27,11 +29,13 @@ _BLOCK_KEYS = {          # AttnBlock attribute -> path in the JAX layer tree
     "wv": ("attn", "wv"), "wo": ("attn", "wo"), "ln_mlp": ("ln_mlp",),
     "w_in": ("mlp", "w_in"), "w_out": ("mlp", "w_out"),
 }
+_MAMBA_KEYS = ("in_proj", "out_proj", "conv_w", "conv_b", "A_log", "D",
+               "dt_bias", "norm_scale")
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: DeviceLike = None) -> DenseLM:
+                device: DeviceLike = None):
     """Random weights from ``torch.Generator(device).manual_seed(seed)``.
 
     The draws differ from ``jax.random``'s for the same seed; parity with
@@ -44,34 +48,52 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 
 def params_from_numpy(tree: Mapping, cfg: ArchConfig,
                       dtype: Optional[torch.dtype] = None,
-                      device: DeviceLike = None) -> DenseLM:
+                      device: DeviceLike = None):
     """The port's parameters from the JAX package's tree, already converted
     to numpy by the caller (``jax.tree.map(np.asarray, params)``).
 
     ``tree["layers"]`` is either the JAX package's stacked layout (every
     leaf ``[num_layers, ...]``) or a list of per-layer trees; it is
-    unstacked into the module's blocks.  ``dtype`` defaults to the arrays'
-    own.
+    unstacked into the module's layers.  The hybrid tree's layers are
+    ``{ln, mamba: {in_proj, ...}}`` beside one ``shared_attn`` block.
+    ``dtype`` defaults to the arrays' own; the Mamba2 ``A_log``, ``D`` and
+    ``dt_bias`` stay f32, as in the JAX tree.
     """
     dev = resolve_device(device)
     dt = dtype or torch.from_numpy(np.array(tree["embed"][:1])).dtype
 
-    def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a)).to(device=dev, dtype=dt)
+    def tensor(a, to=None) -> torch.Tensor:
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=to or dt)
 
-    model = DenseLM(cfg, dt, dev)
+    model = lm_class(cfg)(cfg, dt, dev)
     model.embed.data = tensor(tree["embed"])
     model.final_norm.data = tensor(tree["final_norm"])
     if not cfg.tie_embeddings:
         model.unembed.data = tensor(tree["unembed"])
     layers = tree["layers"]
     stacked = not isinstance(layers, (list, tuple))
-    for i, block in enumerate(model.layers):
+
+    def leaf(sub, path, i=None):
+        for key in path:
+            sub = sub[key]
+        return sub if i is None else sub[i]
+
+    def load_block(block, sub, i=None):
         for name, path in _BLOCK_KEYS.items():
-            leaf = layers if stacked else layers[i]
-            for key in path:
-                leaf = leaf[key]
-            getattr(block, name).data = tensor(leaf[i] if stacked else leaf)
+            getattr(block, name).data = tensor(leaf(sub, path, i))
+
+    for i, layer in enumerate(model.layers):
+        sub, idx = (layers, i) if stacked else (layers[i], None)
+        if cfg.family == "hybrid":
+            layer.ln.data = tensor(leaf(sub, ("ln",), idx))
+            for name in _MAMBA_KEYS:
+                to = torch.float32 if name in F32_PARAMS else None
+                getattr(layer.mamba, name).data = tensor(
+                    leaf(sub, ("mamba", name), idx), to)
+        else:
+            load_block(layer, sub, idx)
+    if cfg.family == "hybrid":
+        load_block(model.shared_attn, tree["shared_attn"])
     return model
 
 
@@ -94,7 +116,10 @@ def make_paged_config(
 
     Stash knobs left ``None`` are derived by :func:`autotune_stash`;
     ``scratch_slots=None`` means one workspace slot per lane.  The pool is
-    rounded up to a multiple of 512 pages.
+    rounded up to a multiple of 512 pages.  The hybrid family holds one KV
+    layer per shared-block application (``num_layers // attn_every``) and
+    one recurrent-state slot per lane (``state_slots``, a tenant between
+    the KV pages and the scratch).
     """
     if cfg.attn_pattern not in ("full", "local_global"):
         raise NotImplementedError(
@@ -132,6 +157,7 @@ def make_paged_config(
         max_lanes=lanes,
         max_pages_per_lane=live_pages,
         dtype=dtype,
+        state_slots=lanes if cfg.family == "hybrid" else 0,
         stash_size=stash_size,
         stash_watermark=stash_watermark,
         stash_refill=stash_refill,

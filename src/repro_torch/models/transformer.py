@@ -1,12 +1,19 @@
-"""Dense LM backbone as an ``nn.Module`` (port of the dense family of
+"""LM backbones as ``nn.Module``s (port of the dense and hybrid families of
 :mod:`repro.models.transformer`).
 
-Parameters keep the JAX tree's names and layouts, one :class:`AttnBlock`
-per layer (the JAX package stacks them for ``scan``):
+Parameters keep the JAX tree's names and layouts, one module per layer
+(the JAX package stacks them for ``scan``):
 
     embed [V, d]   final_norm [d]   unembed [d, V]
-    layers[i]: ln_attn [d], wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d],
+    AttnBlock: ln_attn [d], wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d],
                ln_mlp [d], w_in [d, 2*ff], w_out [ff, d]
+
+:class:`DenseLM` has one :class:`AttnBlock` per layer.  :class:`HybridLM`
+(zamba2) has one :class:`HybridLayer` (``ln`` and a
+:class:`~repro_torch.models.mamba2.Mamba2`) per layer and ONE
+``shared_attn`` block, applied after every ``attn_every``-th layer with
+the same weights each time; each application is one KV layer of the paged
+cache (:func:`hybrid_kv_slots`).
 
 Serving holds the parameters without gradients.
 """
@@ -19,6 +26,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention_op
+from . import mamba2 as m2
 from .attention import FULL_WINDOW, mea_attention
 from .layers import (apply_rope, dense_init, init_embedding, mlp_apply,
                      out_project, qkv_project, rmsnorm)
@@ -68,22 +76,12 @@ class AttnBlock(nn.Module):
         self.w_out = w((ff, d))
 
 
-class DenseLM(nn.Module):
-    """The dense decoder LM.  ``gen=None`` leaves the weights uninitialized
-    for a caller that loads them (:func:`repro_torch.models.model_zoo
-    .params_from_numpy`)."""
+class _LM(nn.Module):
+    """Embedding, final norm and vocab projection, shared by the families."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device, gen: Optional[torch.Generator] = None):
+                 device: torch.device, gen: Optional[torch.Generator]):
         super().__init__()
-        if cfg.family != "dense" \
-                or cfg.attn_pattern not in ("full", "local_global") \
-                or cfg.qkv_bias or cfg.act not in ("swiglu", "geglu") \
-                or cfg.norm != "rmsnorm":
-            raise NotImplementedError(
-                f"repro_torch serves the dense RMSNorm family with full or "
-                f"local:global attention and a gated MLP so far; "
-                f"{cfg.name!r} needs a later slice (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab_size
         if gen is None:
@@ -95,8 +93,6 @@ class DenseLM(nn.Module):
             self.unembed = _param(
                 torch.empty((d, V), dtype=dtype, device=device) if gen is None
                 else dense_init((d, V), dtype, device, gen))
-        self.layers = nn.ModuleList(
-            AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection."""
@@ -104,6 +100,30 @@ class DenseLM(nn.Module):
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
         return x @ self.unembed
+
+
+def _check_attention(cfg: ArchConfig, family: str, patterns: tuple) -> None:
+    if cfg.family != family or cfg.attn_pattern not in patterns \
+            or cfg.qkv_bias or cfg.act not in ("swiglu", "geglu") \
+            or cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"repro_torch serves the dense RMSNorm family with full or "
+            f"local:global attention and the hybrid family with full "
+            f"attention, each with a gated MLP and no QKV bias, so far; "
+            f"{cfg.name!r} needs a later slice (ROADMAP.md, Queue 1)")
+
+
+class DenseLM(_LM):
+    """The dense decoder LM.  ``gen=None`` leaves the weights uninitialized
+    for a caller that loads them (:func:`repro_torch.models.model_zoo
+    .params_from_numpy`)."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, gen: Optional[torch.Generator] = None):
+        _check_attention(cfg, "dense", ("full", "local_global"))
+        super().__init__(cfg, dtype, device, gen)
+        self.layers = nn.ModuleList(
+            AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
                 prefix_kv=None, pos_offset: int = 0):
@@ -130,6 +150,86 @@ class DenseLM(nn.Module):
         if return_kv:
             return logits, (torch.stack(ks), torch.stack(vs))
         return logits
+
+
+def hybrid_attn_flags(cfg: ArchConfig) -> list[bool]:
+    """Whether the shared block runs after layer i: ``i % every ==
+    every - 1``."""
+    every = max(cfg.attn_every, 1)
+    return [i % every == every - 1 for i in range(cfg.num_layers)]
+
+
+def hybrid_kv_slots(cfg: ArchConfig) -> list[int]:
+    """Layer i's KV layer in the paged cache, ``cumsum(flags) - flags``
+    (meaningful on flagged layers only)."""
+    slots, seen = [], 0
+    for f in hybrid_attn_flags(cfg):
+        slots.append(seen)
+        seen += f
+    return slots
+
+
+class HybridLayer(nn.Module):
+    """A pre-norm Mamba2 layer: ``ln`` and the block's parameters."""
+
+    def __init__(self, cfg: ArchConfig, spec: m2.Mamba2Spec,
+                 dtype: torch.dtype, device: torch.device,
+                 gen: Optional[torch.Generator]):
+        super().__init__()
+        self.ln = _param(torch.zeros((cfg.d_model,), dtype=dtype,
+                                     device=device))
+        self.mamba = m2.Mamba2(spec, dtype, device, gen)
+
+
+class HybridLM(_LM):
+    """zamba2: stacked Mamba2 layers and ONE shared attention block, run
+    after every ``attn_every``-th layer with the same weights."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, gen: Optional[torch.Generator] = None):
+        _check_attention(cfg, "hybrid", ("full",))
+        super().__init__(cfg, dtype, device, gen)
+        self.spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
+        self.layers = nn.ModuleList(
+            HybridLayer(cfg, self.spec, dtype, device, gen)
+            for _ in range(cfg.num_layers))
+        self.shared_attn = AttnBlock(cfg, dtype, device, gen)
+
+    def forward(self, tokens: torch.Tensor, return_kv: bool = False,
+                return_states: bool = False, prefix_kv=None,
+                pos_offset: int = 0):
+        """Full-sequence logits ``[B, S, V]``.  ``return_kv`` adds the
+        shared block's ``(k, v)`` of each application, each ``[L_kv, B, S,
+        KV, hd]``; ``return_states`` the per-layer ``(ssm [L, B, h, n, hd],
+        conv [L, B, K-1, conv_dim])`` a decode continues from, and then
+        the final hidden ``[B, S, d]`` instead of logits (the prefill's
+        form).  A recurrent state has no prefix cache: ``prefix_kv`` and
+        ``pos_offset`` raise, as in the JAX package."""
+        if prefix_kv is not None or pos_offset:
+            raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
+                             "plain attention families (family='hybrid')")
+        x = self.embed[tokens.long()]
+        ks, vs, ssms, convs = [], [], [], []
+        for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
+            y, ssm, conv = m2.mamba2_forward_with_state(
+                layer.mamba, self.spec, rmsnorm(layer.ln, x))
+            x = x + y
+            ssms.append(ssm)
+            convs.append(conv)
+            if flag:
+                x, (k, v) = _attn_block_seq(self.cfg, self.shared_attn, x,
+                                            FULL_WINDOW)
+                ks.append(k)
+                vs.append(v)
+        out = x if return_states else self.logits(x)
+        if not (return_kv or return_states):
+            return out
+        extra = ()
+        if return_kv:
+            extra += ((torch.stack(ks), torch.stack(vs)),)
+        if return_states:
+            extra += ((torch.stack(ssms), torch.stack(convs)),)
+        return (out, *extra)
 
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
@@ -170,14 +270,19 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act), (k, v)
 
 
+def lm_class(cfg: ArchConfig) -> type:
+    """The module class of ``cfg``'s family."""
+    return HybridLM if cfg.family == "hybrid" else DenseLM
+
+
 def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: torch.device | str = "cpu") -> DenseLM:
-    """A :class:`DenseLM` with weights drawn from ``gen`` on ``device``."""
-    return DenseLM(cfg, dtype, torch.device(device), gen)
+                   device: torch.device | str = "cpu") -> _LM:
+    """The family's LM with weights drawn from ``gen`` on ``device``."""
+    return lm_class(cfg)(cfg, dtype, torch.device(device), gen)
 
 
-def forward(params: DenseLM, tokens: torch.Tensor, return_kv: bool = False,
+def forward(params: _LM, tokens: torch.Tensor, return_kv: bool = False,
             prefix_kv=None, pos_offset: int = 0):
     """Full-sequence logits (and per-layer K/V with ``return_kv``); see
     :meth:`DenseLM.forward` for the cached prefix."""

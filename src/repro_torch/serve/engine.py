@@ -1,5 +1,5 @@
 """Serving engine: scheduler-driven continuous batching on the paged KV
-(port of :mod:`repro.serve.engine`, dense family).
+(port of :mod:`repro.serve.engine`, dense and hybrid families).
 
 Admission is batched: one prefill per (prompt bucket, cached prefix)
 group, then ONE support-core burst (``paged_kv.admit_prefill_many``) for
@@ -27,6 +27,16 @@ pages as runs (``malloc_run``), which the buddy policy places contiguously;
 ``EngineStats.mean_run_len`` reads how well it did, and :meth:`compact`
 repacks sole-owner pages between burst windows so the free space
 coalesces again.
+
+The hybrid family (zamba2) adds a recurrent state per lane: admission
+prefills exact-length prompts, installs each lane's per-layer states
+(:meth:`_install_states`) and mallocs a ``state_slots`` slot in the same
+burst.  As in the JAX package, its decode is seeded with the LAST PROMPT
+token, which the prefill has already folded into the state: the first
+decode step folds it a second time and writes its K/V at position
+``len(prompt)``.  The port keeps this for parity (ROADMAP.md, Queue 3).
+A recurrent family never rides the prefix cache (:meth:`cache_probe` is
+0).
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from ..alloc.eviction import get_eviction
 from ..core import paged_kv as pkv
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
-from ..models.transformer import DenseLM
+from ..models.decode import RecurrentState, init_recurrent_state
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
 from .serve_step import (ServeState, make_decode_step, make_family_prefill)
@@ -208,7 +218,7 @@ class ServingEngine:
     """
 
     def __init__(self, cfg: ArchConfig, kvcfg: PagedKVConfig,
-                 params: DenseLM,
+                 params,
                  sched_cfg: Optional[SchedulerConfig] = None,
                  device: DeviceLike = None,
                  tenants: Optional[pkv.PagedTenants] = None,
@@ -251,10 +261,13 @@ class ServingEngine:
         # block tables reference cache-owned pages
         self._aliased: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self.admitted_tokens: dict[int, int] = {}
+        self.recurrent = cfg.family == "hybrid"
         self.state = ServeState(
             paged=pkv.init_paged_kv(kvcfg, self.tenants, alloc=alloc_state),
             tokens=torch.zeros((kvcfg.max_lanes,), dtype=I32,
-                               device=self.device))
+                               device=self.device),
+            rec=init_recurrent_state(cfg, kvcfg.max_lanes, params.embed.dtype,
+                                     self.device))
         self._decode = make_decode_step(cfg, kvcfg, self.tenants,
                                         defer_refill=defer_refill)
         self._prefill = make_family_prefill(cfg)
@@ -343,8 +356,9 @@ class ServingEngine:
 
     def cache_probe(self, req) -> int:
         """Plan-time peek: the longest cached prefix (tokens) of the
-        request's prompt, with no side effects."""
-        if self.cache is None:
+        request's prompt, with no side effects; 0 for a recurrent family,
+        whose state a cached prefix cannot restore."""
+        if self.cache is None or self.recurrent:
             return 0
         n, _ = self.cache.probe(np.asarray(req.tokens, np.int32))
         return n
@@ -401,7 +415,9 @@ class ServingEngine:
         """Prefill and install a batch of sequences with ONE support-core
         burst; lanes must be distinct.  Returns the lanes whose admission
         FAILED (already reclaimed).  ``self.admitted_tokens`` maps each
-        admitted lane to its admission-seeded first generated token.
+        admitted lane to its admission-seeded first generated token; a
+        recurrent family seeds with the last prompt token, which is no
+        output, and publishes an empty mapping.
 
         An item with ``cached_len`` prefills only its uncached suffix, over
         the cached pages' K/V; copy mode writes the prefix K/V into the
@@ -465,12 +481,20 @@ class ServingEngine:
                 prefix_kv = (flat(self.state.paged.k_pages),
                              flat(self.state.paged.v_pages))
                 batch["prefix_k"], batch["prefix_v"] = prefix_kv
-            elif self.cache is not None:
+            elif self.cache is not None and not self.recurrent:
                 for it in group:                   # record the miss
                     self.cache.probe(it.tokens, touch=True)
             res = self._prefill(self.params, batch)
             self.stats.prefill_passes += 1
-            all_next.append(res.last_logits[:k].argmax(dim=-1).to(I32))
+            if self.recurrent:
+                # seeded with the last prompt token (folded twice)
+                all_next.append(torch.as_tensor(
+                    [int(it.tokens[-1]) for it in group], dtype=I32,
+                    device=dev))
+                self._install_states(res.states, k,
+                                     [int(it.lane) for it in group])
+            else:
+                all_next.append(res.last_logits[:k].argmax(dim=-1).to(I32))
             all_lanes.extend(int(it.lane) for it in group)
             # alias mode installs the suffix alone; the cached prefix rides
             # as prefix_lens
@@ -554,11 +578,16 @@ class ServingEngine:
         self.stats.prefill_tokens_saved += sum(
             lane_cached.get(lane, 0) for lane, o in zip(lanes_host, ok) if o)
         self._sync_cache_stats()
-        toks = next_tokens.cpu().tolist()
-        self.admitted_tokens = {lane: t for lane, t, o
-                                in zip(lanes_host, toks, ok) if o}
+        if self.recurrent:
+            self.admitted_tokens = {}          # the seed is no output
+        else:
+            toks = next_tokens.cpu().tolist()
+            self.admitted_tokens = {lane: t for lane, t, o
+                                    in zip(lanes_host, toks, ok) if o}
         if failed:
-            # reclaim orphaned partial grants so failure never leaks the pool
+            # reclaim orphaned partial grants (KV pages granted while the
+            # lane's state-slot or scratch packet failed) so failure never
+            # leaks the pool
             self.release(failed, completed=False)
         if any(it.cached_len for it in items):
             # the host copies above already waited for the device
@@ -566,6 +595,18 @@ class ServingEngine:
             self.stats.cache_hit_admit_us += \
                 (time.perf_counter() - t_admit0) * 1e6
         return failed
+
+    def _install_states(self, states: RecurrentState, k: int,
+                        lanes: list[int]) -> None:
+        """Scatter the first ``k`` prefill rows' per-layer recurrent states
+        into the lanes' slots (the conv tails cast to the state's dtype)."""
+        rec = self.state.rec
+        idx = torch.as_tensor(lanes, device=self.device)
+        ssm, conv = rec.ssm.clone(), rec.conv.clone()
+        ssm[:, idx] = states.ssm[:, :k]
+        conv[:, idx] = states.conv[:, :k].to(conv.dtype)
+        self.state = self.state._replace(rec=RecurrentState(ssm=ssm,
+                                                            conv=conv))
 
     def admit(self, lane: int, tokens: np.ndarray) -> bool:
         """Prefill one sequence into ``lane``; False when the allocator

@@ -6,8 +6,9 @@ many client engines with no cross-engine metadata synchronisation.
 
 * **N engine shards, one service.**  Each
   :class:`~repro_torch.serve.engine.ServingEngine` registers its tenant set
-  (``kv_pages`` [+ ``scratch``]) under its own namespace (``"e0/kv_pages"``
-  ...) on one :class:`~repro_torch.alloc.AllocService`, whose single
+  (``kv_pages`` [+ ``state_slots``] [+ ``scratch``]) under its own
+  namespace (``"e0/kv_pages"`` ...) on one
+  :class:`~repro_torch.alloc.AllocService`, whose single
   :class:`~repro_torch.core.freelist.FreeListState` carries every shard's
   classes.  Quota isolation between shards is the per-class isolation
   tenants already have; no shard sees another's metadata.
@@ -49,7 +50,6 @@ from ..core import paged_kv as pkv
 from ..core.lane_stash import stash_push_batch
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
-from ..models.transformer import DenseLM
 from .engine import ServingEngine, run_admission
 from .router import Router, shard_load
 from .scheduler import (Request, Scheduler, SchedulerConfig,
@@ -90,7 +90,7 @@ class MultiEngine:
     """
 
     def __init__(self, cfg: ArchConfig, kvcfg: PagedKVConfig,
-                 params: DenseLM, n_engines: int = 2,
+                 params, n_engines: int = 2,
                  sched_cfg: Optional[SchedulerConfig] = None,
                  quantum: int = 4, preemption: bool = True,
                  router: str = "round_robin",

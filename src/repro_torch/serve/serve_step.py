@@ -1,10 +1,11 @@
 """Serving steps: decode (one token per lane per step) and prefill (port of
-:mod:`repro.serve.serve_step`, dense family).
+:mod:`repro.serve.serve_step`, dense and hybrid families).
 
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
 (``decode_append``); the prefill's attention is the flash kernel on the
-card.
+card.  The hybrid family also threads the lanes' recurrent state
+(``ServeState.rec``) through both.
 
 Each shard of a multi-engine deployment builds its own decode step from
 its own tenant set.  The JAX package shares one step across shards (class
@@ -22,8 +23,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.paged_kv import (PagedKVConfig, PagedKVState, PagedTenants,
                              decode_append, init_paged_kv)
-from ..models.decode import decode_hidden, decode_logits
-from ..models.transformer import DenseLM, forward
+from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
+                             init_recurrent_state)
+from ..models.transformer import forward
 
 I32 = torch.int32
 
@@ -31,6 +33,7 @@ I32 = torch.int32
 class ServeState(NamedTuple):
     paged: PagedKVState
     tokens: torch.Tensor                 # [lanes] last sampled token
+    rec: Optional[RecurrentState] = None  # hybrid: the lanes' recurrent state
 
 
 def init_serve_state(
@@ -43,7 +46,8 @@ def init_serve_state(
     """A serving state with ``lanes`` active sequences of ``prefilled_len``
     tokens, allocator metadata set up as if prefill had admitted them (the
     JAX package's decode dry-run/benchmark state; the real admission path
-    is :class:`repro_torch.serve.engine.ServingEngine`)."""
+    is :class:`repro_torch.serve.engine.ServingEngine`).  The hybrid
+    family's recurrent state starts at zero in ``kvcfg.dtype``."""
     paged = init_paged_kv(kvcfg, tenants)
     dev = paged.seq_lens.device
     ps = kvcfg.page_size
@@ -79,7 +83,8 @@ def init_serve_state(
         seq_lens=torch.full((lanes,), prefilled_len, dtype=I32, device=dev),
         active=torch.ones((lanes,), dtype=torch.bool, device=dev))
     return ServeState(paged=paged,
-                      tokens=torch.zeros((lanes,), dtype=I32, device=dev))
+                      tokens=torch.zeros((lanes,), dtype=I32, device=dev),
+                      rec=init_recurrent_state(cfg, lanes, kvcfg.dtype, dev))
 
 
 def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
@@ -92,24 +97,28 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     The step's one allocator burst goes through ``tenants.service``: the
     CUDA kernel when the state lives on the card.
     """
-    def serve_step(params: DenseLM, state: ServeState):
-        hidden, (new_k, new_v) = decode_hidden(
-            params, cfg, state.paged, state.tokens)
+    def serve_step(params, state: ServeState):
+        hidden, (new_k, new_v), rec = decode_hidden(
+            params, cfg, state.paged, state.tokens, state.rec)
         logits = decode_logits(params, hidden)
         next_tokens = logits.argmax(dim=-1).to(I32)
         paged, *rest = decode_append(kvcfg, state.paged, new_k, new_v,
                                      tenants, defer_refill=defer_refill)
-        return (ServeState(paged=paged, tokens=next_tokens), logits, *rest)
+        return (ServeState(paged=paged, tokens=next_tokens, rec=rec), logits,
+                *rest)
 
     return serve_step
 
 
 class PrefillResult(NamedTuple):
     """Output of the prefill: ``last_logits [B, V]`` at each sequence's
-    last real position and ``kv`` = (k, v), each ``[B, L, T, KV, hd]``."""
+    last real position (``None`` for the hybrid family), ``kv`` = (k, v),
+    each ``[B, L_kv, T, KV, hd]``, and the hybrid family's per-layer
+    ``states`` (``[L, B, ...]``, else ``None``)."""
 
-    last_logits: torch.Tensor
+    last_logits: Optional[torch.Tensor]
     kv: Optional[tuple]
+    states: Optional[RecurrentState] = None
 
 
 def make_family_prefill(cfg: ArchConfig):
@@ -117,14 +126,25 @@ def make_family_prefill(cfg: ArchConfig):
     right-padded ``tokens [B, T]`` with real ``lengths [B]`` (causal
     masking keeps the padding invisible to the real positions).
 
+    The hybrid family folds every token into its state, so its batches
+    must be exact-length (the scheduler's exact buckets); it returns the
+    states a decode continues from and no logits: the engine seeds a
+    hybrid decode with the last prompt token (the JAX engine's
+    ``recurrent_logits=False``).
+
     A prefix-cache hit adds ``prefix_k`` / ``prefix_v``, each ``[B, L, P,
     KV, hd]``: the cached K/V of absolute positions ``[0, P)``.  ``tokens``
     are then the uncached suffix, ``lengths`` count suffix tokens, and
     logits and K/V come back for the suffix alone."""
 
-    def prefill(params: DenseLM, batch: dict) -> PrefillResult:
+    def prefill(params, batch: dict) -> PrefillResult:
         toks = batch["tokens"]
-        lengths = batch["lengths"].long()
+        if cfg.family == "hybrid":
+            _, (ks, vs), (ssm, conv) = params(toks, return_kv=True,
+                                              return_states=True)
+            return PrefillResult(None, (ks.transpose(0, 1),
+                                        vs.transpose(0, 1)),
+                                 RecurrentState(ssm=ssm, conv=conv))
         pk = batch.get("prefix_k")
         if pk is None:
             logits, (ks, vs) = forward(params, toks, return_kv=True)
@@ -135,7 +155,7 @@ def make_family_prefill(cfg: ArchConfig):
                            batch["prefix_v"].transpose(0, 1)),
                 pos_offset=pk.shape[2])
         rows = torch.arange(toks.shape[0], device=toks.device)
-        last = logits[rows, lengths - 1]
+        last = logits[rows, batch["lengths"].long() - 1]
         return PrefillResult(last, (ks.transpose(0, 1), vs.transpose(0, 1)))
 
     return prefill
