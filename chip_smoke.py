@@ -73,7 +73,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                prefill passes x 6, every tenant (``kv_pages``,
                ``state_slots``, ``scratch``) empty at the end; prints
                tokens/s, the median step and prefill pass, peak and
-               per-part memory beside the card; then in f32 with TF32
+               per-part memory beside the card; profiles 8 decode steps
+               of its first batch (launches, device time, idle share) and
+               the shares of the Mamba2 blocks and of their SSD
+               recurrence (plain PyTorch) in them; then in f32 with TF32
                off, 8 decode steps fed given tokens after a 700-token
                prompt against the full forward (max |decode - forward| /
                max |logit| <= 2e-4);
@@ -1475,6 +1478,93 @@ def teacher_forced(dev) -> list:
     return errs
 
 
+def device_profile(fn, steps: int) -> tuple[float, float, float]:
+    """Device kernel microseconds, launches and wall microseconds (under
+    the profiler, ending in a sync) per call of ``fn``, from
+    ``torch.profiler`` over ``steps`` calls after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kernels) / steps
+    if us <= 0:
+        fail("the profiler recorded no device time")
+    return us, sum(e.count for e in kernels) / steps, wall_us
+
+
+def hybrid_step_profile(dev, cfg, params, steps: int = 8) -> dict:
+    """Where zamba2's full-width decode step spends the device: phase 4f's
+    first admission batch, 3 warm steps, then ``steps`` steps under
+    ``torch.profiler`` (wall, device time, idle share, launches); then,
+    on the same lanes' state, every layer's Mamba2 block alone and its
+    SSD recurrence (plain PyTorch, as in the reference) alone, each as a
+    share of the step's device time and launches."""
+    from repro_torch.models import make_paged_config
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.linear_attention import \
+        linear_attention_decode_step
+    from repro_torch.serve.engine import ServingEngine, run_admission
+    from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
+    wl = WORKLOADS["zamba2-1.2b"]
+    kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
+                              page_size=wl["page"], dtype=torch.bfloat16)
+    scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
+    eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
+    sched = Scheduler(scfg)
+    for req in make_requests(cfg, wl, wl["prompt_lens"]):
+        req.max_new_tokens = steps + 8
+        sched.submit(req)
+    run_admission(eng, sched)
+    for _ in range(3):
+        eng.step()
+    step_us, step_n, wall_us = device_profile(eng.step, steps)
+    rec, spec = eng.state.rec, params.spec
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((SERVE_LANES, spec.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    qk = torch.randn((SERVE_LANES, spec.heads, spec.n_state), generator=gen,
+                     device=dev)
+    v = torch.randn((SERVE_LANES, spec.heads, spec.head_dim), generator=gen,
+                    device=dev)
+    decay = -torch.rand((SERVE_LANES, spec.heads, 1), generator=gen,
+                        device=dev)
+
+    def blocks():
+        for i, layer in enumerate(params.layers):
+            m2.mamba2_decode_step(layer.mamba, spec, x, m2.Mamba2DecodeState(
+                conv=rec.conv[i], ssm=rec.ssm[i]))
+
+    def ssd():
+        for i in range(cfg.num_layers):
+            linear_attention_decode_step(rec.ssm[i], qk, qk, v, decay)
+
+    out = dict(step_device_ms=step_us / 1e3, step_wall_ms=wall_us / 1e3,
+               idle_share=1 - step_us / wall_us, launches=step_n)
+    print(f"  profile, {steps} decode steps with {SERVE_LANES} lanes active: "
+          f"{step_n:.0f} launches a step, device {step_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.2f} ms wall a step under the profiler, idle "
+          f"share {out['idle_share']:.3f}")
+    for key, label, fn in (("mamba2", "the Mamba2 blocks, every layer",
+                            blocks),
+                           ("ssd", "their SSD recurrence (plain PyTorch)",
+                            ssd)):
+        us, n, _ = device_profile(fn, steps)
+        out[key] = dict(device_share=us / step_us, launch_share=n / step_n)
+        print(f"  {label}: {us / 1e3:.3f} ms device time in {n:.0f} "
+              f"launches ({us / step_us:.4f} of the step's device time, "
+              f"{n / step_n:.4f} of its launches)")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed_method(obj, name: str) -> list:
     """Wrap ``obj.name`` so that each call's wall time, from its start to
     ``torch.cuda.synchronize()`` after it, lands in the returned list."""
@@ -2226,6 +2316,7 @@ def main() -> None:
     cfg, params = full_width_params(dev, "zamba2-1.2b")
     served["zamba2-1.2b"] = serve_full_width(dev, "zamba2-1.2b", cfg,
                                              params)
+    served["zamba2-1.2b"]["profile"] = hybrid_step_profile(dev, cfg, params)
     del params
     torch.cuda.empty_cache()
     served["zamba2-1.2b"]["teacher_forced_rel_err"] = teacher_forced(dev)

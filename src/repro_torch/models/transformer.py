@@ -196,18 +196,27 @@ class HybridLM(_LM):
         self.shared_attn = AttnBlock(cfg, dtype, device, gen)
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                return_states: bool = False, prefix_kv=None,
-                pos_offset: int = 0):
-        """Full-sequence logits ``[B, S, V]``.  ``return_kv`` adds the
+                prefix_kv=None, pos_offset: int = 0):
+        """Full-sequence logits ``[B, S, V]``; with ``return_kv`` also the
         shared block's ``(k, v)`` of each application, each ``[L_kv, B, S,
-        KV, hd]``; ``return_states`` the per-layer ``(ssm [L, B, h, n, hd],
-        conv [L, B, K-1, conv_dim])`` a decode continues from, and then
-        the final hidden ``[B, S, d]`` instead of logits (the prefill's
-        form).  A recurrent state has no prefix cache: ``prefix_kv`` and
-        ``pos_offset`` raise, as in the JAX package."""
+        KV, hd]``.  A recurrent state has no prefix cache: ``prefix_kv``
+        and ``pos_offset`` raise, as in the JAX package."""
         if prefix_kv is not None or pos_offset:
             raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
                              "plain attention families (family='hybrid')")
+        x, kv, _ = self._run(tokens)
+        logits = self.logits(x)
+        return (logits, kv) if return_kv else logits
+
+    def prefill(self, tokens: torch.Tensor):
+        """The serving prefill's outputs, without the vocab projection:
+        ``(k, v)`` as :meth:`forward` gives them, and the per-layer
+        ``(ssm [L, B, h, n, hd], conv [L, B, K-1, conv_dim])`` a decode
+        continues from."""
+        _, kv, states = self._run(tokens)
+        return kv, states
+
+    def _run(self, tokens: torch.Tensor):
         x = self.embed[tokens.long()]
         ks, vs, ssms, convs = [], [], [], []
         for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
@@ -221,15 +230,8 @@ class HybridLM(_LM):
                                             FULL_WINDOW)
                 ks.append(k)
                 vs.append(v)
-        out = x if return_states else self.logits(x)
-        if not (return_kv or return_states):
-            return out
-        extra = ()
-        if return_kv:
-            extra += ((torch.stack(ks), torch.stack(vs)),)
-        if return_states:
-            extra += ((torch.stack(ssms), torch.stack(convs)),)
-        return (out, *extra)
+        return (x, (torch.stack(ks), torch.stack(vs)),
+                (torch.stack(ssms), torch.stack(convs)))
 
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,

@@ -140,8 +140,7 @@ def make_family_prefill(cfg: ArchConfig):
     def prefill(params, batch: dict) -> PrefillResult:
         toks = batch["tokens"]
         if cfg.family == "hybrid":
-            _, (ks, vs), (ssm, conv) = params(toks, return_kv=True,
-                                              return_states=True)
+            (ks, vs), (ssm, conv) = params.prefill(toks)
             return PrefillResult(None, (ks.transpose(0, 1),
                                         vs.transpose(0, 1)),
                                  RecurrentState(ssm=ssm, conv=conv))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's decode step spends its time on one NVIDIA card.
 
-    python3 tools/profile_torch_serve.py [--arch deepseek-7b|gemma3-1b|zamba2-1.2b] [--steps 8]
+    python3 tools/profile_torch_serve.py [--arch deepseek-7b|gemma3-1b] [--steps 8]
 
 Serves the workload of ``chip_smoke.py``'s full-width phase for ``--arch``
 (published widths, bf16, seeded random weights; its requests, 4 lanes,
@@ -9,12 +9,7 @@ its page size), admits the first batch, runs three decode steps to warm
 up, then traces ``--steps`` decode steps with ``torch.profiler``.  Prints
 the window's wall time, the summed device kernel time and the device's
 idle share, kernel time by name, and the shares of the port's kernels and
-of device copies.  For the hybrid family it then profiles, on the same
-lanes' state, one decode step's worth of the Mamba2 blocks alone (every
-layer's ``mamba2_decode_step``) and of their SSD recurrence alone
-(``linear_attention_decode_step``, plain PyTorch), and prints each one's
-device time and launches as shares of the step's.  Fails when the
-profiler records no device time.
+of device copies.  Fails when the profiler records no device time.
 """
 from __future__ import annotations
 
@@ -41,7 +36,7 @@ SHARES = {"support-core kernel": ("support_core",),
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="deepseek-7b",
-                    choices=["deepseek-7b", "gemma3-1b", "zamba2-1.2b"])
+                    choices=["deepseek-7b", "gemma3-1b"])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -102,59 +97,6 @@ def main() -> None:
         n = sum(e.count for e in kernels if any(f in e.key for f in frags))
         print(f"{label}: {us / 1e3:.3f} ms in {n} launches "
               f"({us / device_us:.4f} of device time)")
-    if cfg.family == "hybrid":
-        mamba_shares(eng, params, args.steps, device_us / args.steps,
-                     launches / args.steps)
-
-
-def device_profile(fn, steps: int) -> tuple[float, float]:
-    """Device kernel microseconds and launches per call of ``fn``, from
-    ``torch.profiler`` over ``steps`` calls after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in kernels) / steps,
-            sum(e.count for e in kernels) / steps)
-
-
-def mamba_shares(eng, params, steps: int, step_us: float,
-                 step_launches: float) -> None:
-    """The Mamba2 blocks' and their SSD recurrence's share of a hybrid
-    decode step, each profiled alone on the engine's lanes and state."""
-    from repro_torch.models import mamba2 as m2
-    from repro_torch.models.linear_attention import \
-        linear_attention_decode_step
-    rec, spec = eng.state.rec, params.spec
-    B = rec.ssm.shape[1]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((B, spec.d_model), generator=gen, device="cuda"
-                    ).to(params.embed.dtype)
-    qk = torch.randn((B, spec.heads, spec.n_state), generator=gen,
-                     device="cuda")
-    v = torch.randn((B, spec.heads, spec.head_dim), generator=gen,
-                    device="cuda")
-    decay = -torch.rand((B, spec.heads, 1), generator=gen, device="cuda")
-
-    def blocks():
-        for i, layer in enumerate(params.layers):
-            m2.mamba2_decode_step(layer.mamba, spec, x, m2.Mamba2DecodeState(
-                conv=rec.conv[i], ssm=rec.ssm[i]))
-
-    def ssd():
-        for i in range(len(params.layers)):
-            linear_attention_decode_step(rec.ssm[i], qk, qk, v, decay)
-
-    for label, fn in (("Mamba2 blocks, every layer", blocks),
-                      ("their SSD recurrence (plain PyTorch)", ssd)):
-        us, n = device_profile(fn, steps)
-        print(f"{label}: {us / 1e3:.3f} ms device time in {n:.0f} launches "
-              f"a step ({us / step_us:.4f} of the step's device time, "
-              f"{n / step_launches:.4f} of its launches)")
 
 
 if __name__ == "__main__":
