@@ -42,7 +42,10 @@ Phases, each failing loudly (non-zero exit, no result line):
                merged release), nothing in use after a release, the C = 3
                admission and the C = 6 release timed; the paged and flash
                kernels also at zamba2-1.2b's shared-block shapes (hd 64,
-               H = KV = 32), timed there too; flash prefill over a cached
+               H = KV = 32) and at the dense backbones' (phi3-medium's
+               40 heads on 10 KV heads x 128, qwen2's 64 on 8 x 128,
+               phi-3-vision's 32 on 32 x 96; flash at 576 + 524 rows and
+               a bf16 edge sweep at hd 96), timed there too; flash prefill over a cached
                prefix (query offsets 8-1200) in f32 and bf16, offset 0
                bit-identical to the call without one, and one offset
                shape per architecture timed; the bitmap and buddy policies
@@ -65,6 +68,26 @@ Phases, each failing loudly (non-zero exit, no result line):
 4b. serve    -- gemma3-1b at its published widths (26 layers, windows of
                512 on five layers in six, GQA 4:1) the same way, with
                prompts of 600-1500 tokens so the window binds;
+4g. phi3     -- phi3-medium-14b at its published widths (40 layers,
+               d_model 5120, 40 heads on 10 KV heads x 128: G = 4; 29.3 GB
+               of bf16 weights) the same way as 4b, with 4b's traffic
+               (8 prompts of 600-1500 tokens, 16-token pages, 32 new
+               tokens); prints the weights', the KV pool's and a token's
+               K/V bytes;
+4h. qwen2    -- qwen2-72b at its published widths with a depth cut (8 of
+               80 layers, printed as ``reduced``; d_model 8192, 64 heads
+               on 8 KV heads x 128: G = 8, random nonzero QKV biases, RoPE
+               theta 1e6), 4b's traffic;
+4i. vlm      -- phi-3-vision-4.2b at its published widths (32 layers, head
+               dim 96): 8 requests of 576 patch rows (``randn``, f32 cast
+               to bf16) and prompts of 32-512 tokens, 16-token pages,
+               seq_len 1152; every admitted lane must hold its patch rows
+               and its prompt; then in f32 with TF32 off, 576 patch rows
+               and a 124-token prompt, 8 decode steps fed given tokens
+               against ``forward(prefix_embeds=...)`` (max |decode -
+               forward| / max |logit| <= 2e-4);
+               4g-4i check launches as phase 4 does and that nothing is
+               in use at the end;
 4f. hybrid   -- zamba2-1.2b at its published widths (38 Mamba2 layers,
                d_model 2048, one shared attention block every 6 layers:
                6 KV layers of 32 heads x 64) the same way, bf16, 4 lanes,
@@ -114,11 +137,14 @@ Phases, each failing loudly (non-zero exit, no result line):
                what-if of the whole trace refused; prints each replay's
                wall time and bursts/s;
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
-               through the port on ``cuda`` and on ``cpu``, for the three
+               through the port on ``cuda`` and on ``cpu``, for the six
                architectures (zamba2-1.2b at 4 layers, the shared block
-               twice): allocator state and served tokens must be
-               identical; then two shards with the cache on (alias mode
-               for deepseek-7b, copy for gemma3-1b) on both devices:
+               twice; phi3-medium with 8 heads on 2 KV heads, qwen2 with
+               8 on 1 and its QKV bias, phi-3-vision at hd 96 with 4 patch
+               rows a request): allocator state and served tokens must be
+               identical; then, for deepseek-7b, gemma3-1b and qwen2-72b,
+               two shards with the cache on (alias mode for deepseek-7b
+               and qwen2-72b, copy for gemma3-1b) on both devices:
                identical tokens and shared allocator state, and tokens
                equal to the cache-off run's; then the same two shards under
                the bitmap and under the buddy policy, stepped window by
@@ -169,13 +195,38 @@ WORKLOADS = {
                       new_tokens=32, prompt_lens=(600, 1500)),
     "zamba2-1.2b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
                         new_tokens=32, prompt_lens=(600, 1500)),
+    "phi3-medium-14b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
+                            new_tokens=32, prompt_lens=(600, 1500)),
+    "qwen2-72b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
+                      new_tokens=32, prompt_lens=(600, 1500)),
+    # 576 patch rows ahead of prompts of 32-512 tokens: 576 + 512 + 32 new
+    # tokens fit 73 pages of 16 (seq_len 1152)
+    "phi-3-vision-4.2b": dict(seq=1152, page=16, max_prompt=512, requests=8,
+                              new_tokens=32, prompt_lens=(32, 512),
+                              patches=576),
 }
+# full width with a depth cut where all layers would not fit one card:
+# qwen2-72b's 80 layers are 145 GB of bf16 weights; 8 layers are 19 GB
+DEPTH_CUT = {"qwen2-72b": 8}
+# the dense backbones' serving shapes at 4 lanes: paged decode (B, KV, G,
+# hd, ps, P, L, seq_lens) and flash prefill (B, T, H, KV, hd): phi3-medium
+# (G = 4, 10 KV heads), qwen2 (G = 8, the paged kernel's MAXG path),
+# phi-3-vision (hd 96; T = 576 patch rows + a 512-token bucket)
+DENSE_PAGED = {
+    "phi3-medium-14b": (4, 10, 4, 128, 16, 129, 40, [1500, 1200, 900, 611]),
+    "qwen2-72b": (4, 8, 8, 128, 16, 129, 8, [1500, 1200, 900, 611]),
+    "phi-3-vision-4.2b": (4, 32, 1, 96, 16, 73, 32, [1120, 1000, 850, 700])}
+DENSE_FLASH = {"phi3-medium-14b": (4, 1536, 40, 10, 128),
+               "qwen2-72b": (4, 1536, 64, 8, 128),
+               "phi-3-vision-4.2b": (4, 1088, 32, 32, 96)}
 # zamba2-1.2b's serving shapes: the shared block's paged decode (hd 64,
 # H = KV = 32, 16-token pages, 129-page tables, 6 KV layers) and flash
 # prefill (hd 64, G = 1); the teacher-forced check's prompt and steps
 ZAMBA_PAGED = (4, 32, 1, 64, 16, 129, 6, [1500, 1200, 900, 611])
 ZAMBA_FLASH = (4, 1200, 32, 32, 64)
 TEACHER = dict(prompt=700, steps=8, tol=2e-4)
+# phi-3-vision's teacher-forced check: 576 patch rows, a 124-token prompt
+VLM_TEACHER = dict(patches=576, prompt=124, steps=8, tol=2e-4)
 # phase 4c and the multi-engine runs of phase 5: two shards, shared-prefix
 # traffic (two 64-token prefixes, tails of 8-40 tokens)
 MULTI = dict(engines=2, quantum=4, seq=256, page=8, max_prompt=128,
@@ -184,8 +235,17 @@ MULTI = dict(engines=2, quantum=4, seq=256, page=8, max_prompt=128,
 # zamba2: 4 layers, the shared block after layers 1 and 3)
 SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
 SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128),
-                 "zamba2-1.2b": None}
-SMALL_DEPTH = {"zamba2-1.2b": dict(num_layers=4, attn_every=2)}
+                 "zamba2-1.2b": None, "phi3-medium-14b": None,
+                 "qwen2-72b": None, "phi-3-vision-4.2b": None}
+# each reduced config keeps what smoke_config would hide: phi3-medium's
+# G = 4, qwen2's G = 8 (with its QKV bias) and phi-3-vision's hd 96
+SMALL_DEPTH = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
+               "phi3-medium-14b": dict(num_heads=8, num_kv_heads=2),
+               "qwen2-72b": dict(num_heads=8, num_kv_heads=1),
+               "phi-3-vision-4.2b": dict(head_dim=96)}
+# the archs whose phase 5 adds two shards with prefix caches and the
+# bitmap and buddy policies
+MULTI_ARCHS = ("deepseek-7b", "gemma3-1b", "qwen2-72b")
 # a card-sized page pool: make_paged_config(gemma3-1b, seq_len=2048,
 # lanes=256, page_size=16) gives 35840 pages (14.2 GiB of bf16 KV) and 256
 # scratch slots; warm bursts put POOL_WARM pages in use across its lanes
@@ -963,13 +1023,20 @@ def paged_parity(dev, errs: Errors) -> None:
                                paged_attention_plain(*args, **kw), dt)
                     n_cases += 1
         # serving shapes: deepseek-7b, gemma3-1b's local and global layers,
-        # zamba2-1.2b's shared block; lane 1 at a page boundary, lane 2
-        # inactive, lane 3 short
+        # zamba2-1.2b's shared block, phi3-medium (G = 4 on 10 KV heads),
+        # qwen2 (G = 8), phi-3-vision (hd 96); lane 1 at a page boundary,
+        # lane 2 inactive, lane 3 short
         for (KV, G, hd, ps, P, L, seq), windows in (
                 ((32, 1, 128, 8, 33, 30, [119, 64, 40, 3]), (FULL,)),
                 ((1, 4, 256, 16, 129, 26, [1400, 1024, 700, 611]),
                  (512, FULL)),
-                ((32, 1, 64, 16, 129, 6, [1500, 1024, 700, 611]), (FULL,))):
+                ((32, 1, 64, 16, 129, 6, [1500, 1024, 700, 611]), (FULL,)),
+                ((10, 4, 128, 16, 129, 2, [1500, 1024, 700, 611]),
+                 (FULL, 300)),
+                ((8, 8, 128, 16, 129, 2, [1500, 1024, 700, 611]),
+                 (FULL, 300)),
+                ((32, 1, 96, 16, 73, 2, [1120, 1024, 700, 611]),
+                 (FULL, 300))):
             case = paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P, L, seq,
                                    [True, True, False, True])
             for window in windows:
@@ -1014,7 +1081,11 @@ def flash_parity(dev, errs: Errors) -> None:
         (4, 128, 128, 32, 32, 128, True, FULL),    # deepseek-7b prefill
         (4, 1536, 1536, 4, 1, 256, True, 512),     # gemma3-1b local layer
         (4, 1536, 1536, 4, 1, 256, True, FULL),    # gemma3-1b global layer
-        (4, 1200, 1200, 32, 32, 64, True, FULL)]   # zamba2-1.2b shared block
+        (4, 1200, 1200, 32, 32, 64, True, FULL),   # zamba2-1.2b shared block
+        (4, 1500, 1500, 40, 10, 128, True, FULL),  # phi3-medium-14b
+        (4, 1500, 1500, 64, 8, 128, True, FULL),   # qwen2-72b
+        (4, 1100, 1100, 32, 32, 96, True, FULL),   # phi-3-vision: 576 + 524
+        (2, 200, 200, 8, 1, 96, True, 64)]         # hd 96 at G = 8, windowed
     for dt in (torch.float32, torch.bfloat16):
         for B, Tq, Tk, H, KV, hd, causal, window in cases:
             q = rand(rng, (B, Tq, H, hd), dt, dev)
@@ -1033,16 +1104,16 @@ def flash_parity(dev, errs: Errors) -> None:
 
 def flash_edge_parity(dev, errs: Errors) -> None:
     """The tensor-core kernel's edges in bf16: lengths around a 64-row
-    tile, windows of 1, 100 and 512, every serving head width and group
-    size; queries scaled by 8 so scores reach +-30 and the online softmax
-    rescales with P rounded to bf16."""
+    tile, windows of 1, 100 and 512, every serving head width (hd 96's
+    own swizzle included) and group size; queries scaled by 8 so scores
+    reach +-30 and the online softmax rescales with P rounded to bf16."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.RandomState(4)
     n = 0
     for T in (1, 63, 65, 200, 2048):
         for window in (1, 100, 512):
-            for hd in (64, 128, 256):
+            for hd in (64, 96, 128, 256):
                 for G in (1, 4, 8):
                     q = (torch.as_tensor(rng.randn(1, T, 2 * G, hd)
                                          .astype(np.float32), device=dev)
@@ -1112,7 +1183,9 @@ def paged_split_parity(dev, errs: Errors) -> None:
     rng = np.random.RandomState(5)
     n = 0
     for dt in (torch.float32, torch.bfloat16):
-        for KV, G, hd, ps, P in ((1, 4, 256, 16, 129), (32, 1, 128, 8, 33)):
+        for KV, G, hd, ps, P in ((1, 4, 256, 16, 129), (32, 1, 128, 8, 33),
+                                 (10, 4, 128, 16, 129), (8, 8, 128, 16, 129),
+                                 (32, 1, 96, 16, 73), (1, 8, 96, 16, 73)):
             for window in (FULL, 512):
                 splits, chunk = plan_splits(4, KV, G, P, ps, window, sms)
                 seq = [5, chunk - 1, min(P * ps - 1, window + 40), 9]
@@ -1156,9 +1229,16 @@ def determinism(dev) -> None:
                            2, [1400, 1024, 700, 611], [True] * 4)
     args, kw = paged_args(case, FULL, True)
     runs["paged"] = lambda: (op(*args, **kw),)
+    case96 = paged_pool_case(rng, dev, torch.bfloat16, 4, 32, 1, 96, 16, 73,
+                             2, [1120, 1000, 850, 700], [True] * 4)
+    args96, kw96 = paged_args(case96, FULL, True)
+    runs["paged hd 96"] = lambda: (op(*args96, **kw96),)
     q = rand(rng, (4, 1536, 4, 256), torch.bfloat16, dev)
     kv = rand(rng, (4, 1536, 1, 256), torch.bfloat16, dev)
     runs["flash"] = lambda: (flash_attention_op(q, kv, kv, window=FULL),)
+    q96 = rand(rng, (4, 1088, 32, 96), torch.bfloat16, dev)
+    kv96 = rand(rng, (4, 1088, 32, 96), torch.bfloat16, dev)
+    runs["flash hd 96"] = lambda: (flash_attention_op(q96, kv96, kv96),)
     for name, fn in runs.items():
         a, b = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
@@ -1252,15 +1332,22 @@ def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
 
 def make_requests(cfg, wl, prompt_lens):
     """``wl["requests"]`` requests from ``RandomState(0)``: the launcher's
-    synthetic mix, or uniform prompt lengths in ``prompt_lens``."""
+    synthetic mix, or uniform prompt lengths in ``prompt_lens``, each
+    request's tokens then (vlm) its ``wl["patches"]`` patch rows of
+    ``randn`` in f32, which the engine casts to the model's dtype."""
     from repro_torch.launch.serve import synth_requests
     from repro_torch.serve.scheduler import Request
     rng = np.random.RandomState(0)
     if prompt_lens is None:
         return synth_requests(cfg, wl["requests"], rng)
     lens = rng.randint(prompt_lens[0], prompt_lens[1] + 1, wl["requests"])
-    return [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, size=int(n))
-                    .astype(np.int32)) for i, n in enumerate(lens)]
+    reqs = []
+    for i, n in enumerate(lens):
+        toks = rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+        pe = rng.randn(wl["patches"], cfg.d_model).astype(np.float32) \
+            if wl.get("patches") else None
+        reqs.append(Request(rid=i, tokens=toks, patches=pe))
+    return reqs
 
 
 def time_prefill_passes(eng, times_us: list, hit_us: list | None = None
@@ -1283,8 +1370,30 @@ def time_prefill_passes(eng, times_us: list, hit_us: list | None = None
     eng._prefill = timed
 
 
+def check_patch_rows(eng, checked: list) -> None:
+    """Wrap the engine's admission: after each one, every admitted lane
+    must hold its patch rows and its prompt (``P + len(tokens)`` tokens
+    in ``seq_lens``); the lengths checked land in ``checked``."""
+    inner = eng.admit_many
+
+    def admit(items):
+        failed = inner(items)
+        seq = eng.state.paged.seq_lens.cpu().tolist()
+        for it in items:
+            if it.lane in failed:
+                continue
+            want = len(it.tokens) + (0 if it.patches is None
+                                     else len(it.patches))
+            if seq[it.lane] != want:
+                fail(f"lane {it.lane} holds {seq[it.lane]} tokens after its "
+                     f"admission, not patches + prompt = {want}")
+            checked.append(want)
+        return failed
+    eng.admit_many = admit
+
+
 def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
-          prefill_us=None):
+          prefill_us=None, patch_rows=None):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
@@ -1295,6 +1404,8 @@ def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
     if prefill_us is not None:
         time_prefill_passes(eng, prefill_us)
+    if cfg.family == "vlm":
+        check_patch_rows(eng, [] if patch_rows is None else patch_rows)
     sched = Scheduler(scfg)
     reqs = make_requests(cfg, wl, prompt_lens)
     step_us: list = []
@@ -1313,12 +1424,29 @@ def check_served(eng, sched, reqs) -> None:
         fail(f"{eng.live_pages} KV pages still live after the last release")
 
 
+def full_width_config(arch: str):
+    """The configuration at its published widths, at ``DEPTH_CUT``'s depth
+    where it has one."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, num_layers=DEPTH_CUT[arch])
+    return cfg
+
+
+def kv_bytes_per_token(cfg, el: int = 2) -> int:
+    """K and V of one token over every KV layer."""
+    return cfg.num_attn_layers * 2 * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * el
+
+
 def full_width_params(dev, arch: str):
     """The configuration at its published widths with bf16 weights drawn
-    from a seeded generator on the card."""
+    from a seeded generator on the card (a QKV bias drawn like the
+    weights, where the config has one)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config(arch)
+    cfg = full_width_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
@@ -1329,12 +1457,28 @@ def full_width_params(dev, arch: str):
                   f"x {spec.head_dim}, state {spec.n_state}, one shared "
                   f"attention block every {cfg.attn_every} layers "
                   f"({cfg.num_attn_layers} KV layers)")
-    print(f"  {arch}: {cfg.num_layers} layers (all), d_model {cfg.d_model}, "
+    if arch in DEPTH_CUT:
+        depth = (f"{cfg.num_layers} of {get_config(arch).num_layers} "
+                 f"layers (reduced: depth)")
+        cut = dict(num_layers=[get_config(arch).num_layers, cfg.num_layers])
+        print(f"  reduced: {json.dumps(cut)}")
+    else:
+        depth = f"{cfg.num_layers} layers (all)"
+    extra = ""
+    if cfg.qkv_bias:
+        b = params.layers[0].bk.float()
+        extra += (f"; QKV bias (random, layer 0 bk std {float(b.std()):.4f},"
+                  f" RoPE theta {cfg.rope_theta:g})")
+    if cfg.family == "vlm":
+        extra += (f"; vlm: {cfg.frontend_tokens} patch rows of d_model "
+                  f"ahead of each prompt")
+    print(f"  {arch}: {depth}, d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.attn_pattern} attention (window {cfg.window}), {cfg.act}, "
-          f"bf16{hybrid}; {param_gb(params):.2f} GB of weights drawn in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"bf16{hybrid}{extra}; {param_gb(params):.2f} GB of weights drawn "
+          f"in {time.perf_counter() - t0:.1f}s; {kv_bytes_per_token(cfg)} "
+          f"bytes of bf16 K/V a token")
     return cfg, params
 
 
@@ -1375,14 +1519,24 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     zero_launches()
     t0 = time.perf_counter()
     prefill_us: list = []
+    patch_rows: list = []
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
                                              dev, wl, wl["prompt_lens"],
                                              verbose=True,
-                                             prefill_us=prefill_us)
+                                             prefill_us=prefill_us,
+                                             patch_rows=patch_rows)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     check_served(eng, sched, reqs)
+    if cfg.family == "vlm":
+        if len(patch_rows) != eng.stats.admitted:
+            fail(f"{arch}: {len(patch_rows)} admissions checked for their "
+                 f"patch rows, {eng.stats.admitted} made")
+        print(f"  every one of {len(patch_rows)} admissions holds its "
+              f"{wl['patches']} patch rows and its prompt "
+              f"({min(patch_rows)}-{max(patch_rows)} tokens, charged as "
+              f"pages of {wl['page']})")
     s, L = eng.stats, cfg.num_attn_layers
     check_launches(arch, launches, dict(
         support_core_burst=s.commits,
@@ -1417,7 +1571,8 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
         t.numel() * t.element_size() for t in rec) / 1e9
     print(f"  memory: weights {param_gb(params):.2f} GB, KV pool {pool_gb:.2f}"
           f" GB ({cfg.num_attn_layers} KV layers x {eng.kvcfg.num_pages + 1} "
-          f"pages), recurrent state {rec_gb:.3f} GB")
+          f"pages, {kv_bytes_per_token(cfg, paged.k_pages.element_size())} "
+          f"bytes a token), recurrent state {rec_gb:.3f} GB")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
         if rep["used"] or rep["alloc_count"] != rep["free_count"]:
@@ -1432,31 +1587,38 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
                 peak_gib=peak, serve_gib=peak - held,
-                median_prefill_ms=prefill_ms)
+                median_prefill_ms=prefill_ms, weight_gb=param_gb(params),
+                kv_pool_gb=pool_gb, decode_steps=s.decode_steps,
+                prefill_passes=s.prefill_passes)
 
 
-def teacher_forced(dev) -> list:
-    """zamba2-1.2b at full width in f32 with TF32 off: a 700-token prompt
-    admitted through the engine, then 8 decode steps fed given tokens (the
-    seed overwritten, so no token is folded twice), each step's logits
-    against the full forward of the same tokens.  Fails above
-    ``TEACHER["tol"]`` of max |decode - forward| / max |logit|."""
+def teacher_forced(dev, arch: str, spec: dict) -> list:
+    """``arch`` at full width in f32 with TF32 off: a ``spec["prompt"]``-
+    token prompt (vlm: behind ``spec["patches"]`` patch rows of ``randn``)
+    admitted through the engine, then ``spec["steps"]`` decode steps fed
+    given tokens (the seed overwritten, so a recurrent family folds no
+    token twice), each step's logits against the full forward of the same
+    tokens and patches.  Fails above ``spec["tol"]`` of max |decode -
+    forward| / max |logit|."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_paged_config
     from repro_torch.models.transformer import forward
     from repro_torch.serve.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("zamba2-1.2b")
+    cfg = get_config(arch)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-    n, steps = TEACHER["prompt"], TEACHER["steps"]
-    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, n + steps) \
-        .astype(np.int32)
+    n, steps, n_patch = spec["prompt"], spec["steps"], spec.get("patches", 0)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, n + steps).astype(np.int32)
+    pe = rng.randn(n_patch, cfg.d_model).astype(np.float32) if n_patch \
+        else None
+    prefix = None if pe is None else torch.as_tensor(pe, device=dev)[None]
     kvcfg = make_paged_config(cfg, seq_len=1024, lanes=1, page_size=16,
                               dtype=torch.float32)
     eng = ServingEngine(cfg, kvcfg, params, device=dev)
-    if not eng.admit(0, toks[:n]):
-        fail("zamba2-1.2b teacher-forced: the admission failed")
+    if not eng.admit(0, toks[:n], patches=pe):
+        fail(f"{arch} teacher-forced: the admission failed")
     errs = []
     for t in range(steps):
         tokens = eng.state.tokens.clone()
@@ -1464,15 +1626,17 @@ def teacher_forced(dev) -> list:
         eng.state = eng.state._replace(tokens=tokens)
         eng.state, logits, _ = eng._decode(eng.params, eng.state)
         ref = forward(params, torch.as_tensor(toks[:n + t + 1],
-                                              device=dev)[None])[0, -1]
+                                              device=dev)[None],
+                      prefix_embeds=prefix)[0, -1]
         errs.append(float((logits[0] - ref).abs().max() / ref.abs().max()))
-    print(f"  zamba2-1.2b teacher-forced, f32, TF32 off: {steps} decode "
-          f"steps after a {n}-token prompt; max |decode - forward| / max "
+    behind = f"{n_patch} patch rows and " if n_patch else ""
+    print(f"  {arch} teacher-forced, f32, TF32 off: {steps} decode steps "
+          f"after {behind}a {n}-token prompt; max |decode - forward| / max "
           f"|logit| per step: {', '.join(f'{e:.2e}' for e in errs)} "
-          f"(tolerance {TEACHER['tol']:g})")
-    if not max(errs) <= TEACHER["tol"]:
-        fail(f"zamba2-1.2b teacher-forced decode differs from the forward "
-             f"by {max(errs):.3e}")
+          f"(tolerance {spec['tol']:g})")
+    if not max(errs) <= spec["tol"]:
+        fail(f"{arch} teacher-forced decode differs from the forward by "
+             f"{max(errs):.3e}")
     del eng, params
     torch.cuda.empty_cache()
     return errs
@@ -2035,8 +2199,11 @@ def device_vs_cpu(dev, arch: str) -> None:
             fail(f"{arch}: paged state field {field} differs between cuda "
                  f"and cpu")
     prompts = [r.prompt_len for r in rg]
-    print(f"  {arch} ({cfg.num_layers} layers, windows "
-          f"{[cfg.window] if cfg.window else 'none'}"
+    print(f"  {arch} ({cfg.num_layers} layers, {cfg.num_heads} heads on "
+          f"{cfg.num_kv_heads} KV heads x {cfg.resolved_head_dim}"
+          f"{', QKV bias' if cfg.qkv_bias else ''}"
+          f"{', 4 patch rows a request' if cfg.family == 'vlm' else ''}, "
+          f"windows {[cfg.window] if cfg.window else 'none'}"
           f"{f', attention every {cfg.attn_every}' if cfg.attn_every else ''}"
           f"): cuda and cpu agree on "
           f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
@@ -2047,7 +2214,7 @@ def device_vs_cpu(dev, arch: str) -> None:
         # one, under the free list and under buddy
         policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
                              policies=("freelist", "buddy"), cache=False)
-    else:
+    elif arch in MULTI_ARCHS:
         multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
 
 
@@ -2274,12 +2441,16 @@ def main() -> None:
                                       [1400, 1024, 700, 611], 512),
         "gemma3-1b global": time_paged(dev, 4, 1, 4, 256, 16, 129, 26,
                                        [1400, 1024, 700, 611], FULL),
-        "zamba2-1.2b": time_paged(dev, *ZAMBA_PAGED, FULL)}
+        "zamba2-1.2b": time_paged(dev, *ZAMBA_PAGED, FULL),
+        **{arch: time_paged(dev, *shape, FULL)
+           for arch, shape in DENSE_PAGED.items()}}
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
         "gemma3-1b global": time_flash(dev, 4, 1536, 4, 1, 256, FULL),
-        "zamba2-1.2b": time_flash(dev, *ZAMBA_FLASH, FULL)}
+        "zamba2-1.2b": time_flash(dev, *ZAMBA_FLASH, FULL),
+        **{arch: time_flash(dev, *shape, FULL)
+           for arch, shape in DENSE_FLASH.items()}}
     for name, (T, P, *shape) in OFFSET_SHAPES.items():
         t_flash[name] = time_flash(dev, 4, T, *shape, P=P)
 
@@ -2319,10 +2490,26 @@ def main() -> None:
     served["zamba2-1.2b"]["profile"] = hybrid_step_profile(dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    served["zamba2-1.2b"]["teacher_forced_rel_err"] = teacher_forced(dev)
+    served["zamba2-1.2b"]["teacher_forced_rel_err"] = teacher_forced(
+        dev, "zamba2-1.2b", TEACHER)
+    for phase, arch, what in (
+            ("4g", "phi3-medium-14b", "40 layers, 40 heads on 10 KV heads "
+             "x 128"),
+            ("4h", "qwen2-72b", "8 of 80 layers, 64 heads on 8 KV heads x "
+             "128, random QKV biases"),
+            ("4i", "phi-3-vision-4.2b", "32 layers, head dim 96, 576 patch "
+             "rows ahead of each prompt")):
+        print(f"== {phase}. serve {arch} at full width ({what})")
+        cfg, params = full_width_params(dev, arch)
+        served[arch] = serve_full_width(dev, arch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    served["phi-3-vision-4.2b"]["teacher_forced_rel_err"] = teacher_forced(
+        dev, "phi-3-vision-4.2b", VLM_TEACHER)
 
     print("== 5. device against cpu")
-    for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b"):
+    for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b",
+                 "phi3-medium-14b", "qwen2-72b", "phi-3-vision-4.2b"):
         device_vs_cpu(dev, arch)
 
     print("== 6. result")
@@ -2356,6 +2543,9 @@ def main() -> None:
                             if k.startswith("zamba2_")},
              zamba2_serve={k: v for k, v in served["zamba2-1.2b"].items()
                            if k != "launches"},
+             dense_serves={a: {k: v for k, v in served[a].items()
+                               if k != "launches"}
+                           for a in DENSE_PAGED},
              plain_policies=dict(card_vs_cpu_bursts=pol_checked,
                                  times=t_pol),
              open_loop={k: v for k, v in

@@ -2,8 +2,11 @@
 
 One :class:`ArchConfig` describes an architecture; ``configs/<id>.py``
 instantiates the published numbers and :func:`get_config` resolves an arch
-id.  The port carries the dense family -- ``deepseek-7b`` (full attention)
-and ``gemma3-1b`` (local:global windows, GQA) -- and the hybrid family --
+id.  The port carries the dense family -- ``deepseek-7b`` (full attention),
+``gemma3-1b`` (local:global windows, GQA), ``phi3-medium-14b`` (GQA 4:1)
+and ``qwen2-72b`` (GQA 8:1, QKV bias, RoPE theta 1e6) --, the vlm family
+-- ``phi-3-vision-4.2b`` (a phi3-mini backbone at head dim 96 behind a
+prefix of precomputed patch embeddings) -- and the hybrid family --
 ``zamba2-1.2b`` (Mamba2 layers with one shared attention block); the other
 arch modules are ported with their model families (ROADMAP.md, Queue 1).
 """
@@ -16,11 +19,15 @@ from typing import Optional
 _REGISTRY: dict[str, "ArchConfig"] = {}
 
 #: arch ids the port can build today
-ARCH_IDS = ("deepseek-7b", "gemma3-1b", "zamba2-1.2b")
+ARCH_IDS = ("deepseek-7b", "gemma3-1b", "phi3-medium-14b", "qwen2-72b",
+            "phi-3-vision-4.2b", "zamba2-1.2b")
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
     "gemma3-1b": "gemma3_1b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "qwen2-72b": "qwen2_72b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "zamba2-1.2b": "zamba2_1p2b",
 }
 

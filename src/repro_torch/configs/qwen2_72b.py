@@ -1,0 +1,22 @@
+"""Qwen2-72B — dense, GQA with QKV bias [arXiv:2407.10671; hf].
+
+80L, d_model=8192, 64 heads (GQA kv=8), d_ff=29568, vocab=152064.
+"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    norm="rmsnorm",
+    act="swiglu",
+    source="arXiv:2407.10671; hf",
+))

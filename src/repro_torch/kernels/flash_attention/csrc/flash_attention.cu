@@ -29,7 +29,8 @@
 // 32 at hd 256, where a 64-key S tile beside O's 128 accumulator
 // registers spills) sit in shared memory as bf16, rows of 16-byte chunks
 // XOR-swizzled by the row so that ldmatrix reads 8 rows without a bank
-// conflict (96 KB at hd 256, 80 KB at hd 128).  Tiles arrive by
+// conflict (96 KB at hd 256, 80 KB at hd 128, 60 KB at hd 96, whose 12
+// chunks a row take a swizzle of their own: Tile).  Tiles arrive by
 // cp.async.cg: tile j + 1's K and V are in flight while tile j is
 // computed, with one barrier per tile.  Both products are mma.sync
 // m16n8k16 (bf16 in, f32 accumulate); A and B fragments come from
@@ -95,13 +96,19 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
+// At hd 96 ptxas held the kernel to 80 registers and spilled; asking for
+// two blocks a SM (all its 91 KB of shared memory allows) lets it keep
+// everything in up to 128.
+constexpr int min_blocks(int hd) { return hd == 96 ? 2 : 1; }
+
 // Key positions here are relative to query row 0: key j sits at
 // j - q_offset, so row r and key j compare as in the kernel without an
 // offset.  `Tk` counts keys from there (the launcher passes the key count
 // less q_offset) and keys run from -q_offset; k and v start q_offset rows
 // into their slabs.  The offset then costs no register in the K loop.
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks(HD))
+flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Tq, int Tk, int H,
     int KV, int causal, int window, int q_offset, float scale) {
@@ -266,16 +273,29 @@ struct BlockK {
   static constexpr int value = HD >= 256 ? 32 : 64;
 };
 
-// A [rows][HD] bf16 tile as rows of HD / 8 chunks of 16 bytes; chunk c of
-// row r is stored at chunk c ^ (r & MASK), so the 8 rows one ldmatrix
-// reads at one chunk column land on 8 different 16-byte bank groups
-// (for HD >= 64; narrower rows share groups, which costs time only).
+// A [rows][HD] bf16 tile as rows of CH = HD / 8 chunks of 16 bytes; chunk
+// c of row r is stored at chunk c ^ (r & MASK), so the 8 rows one ldmatrix
+// reads at one chunk column (8 consecutive rows from a multiple of 8) land
+// on 8 different 16-byte bank groups (for HD >= 64; narrower rows share
+// groups, which costs time only).  At hd 96 a row has 12 chunks and an XOR
+// over 8 would send chunks 8-11 out of the row: there chunks 0-7 take
+// c ^ (r & 7) and chunks 8-11 take 8 + ((c - 8) ^ ((r >> 1) & 3)), each a
+// permutation inside its part of the row.  The row starts at chunk 12 r,
+// bank group 4 (r & 1); with the swizzle the 8 rows' groups are
+// 4 (r & 1) + (c ^ r) mod 8 and 4 (r & 1) + ((c - 8) ^ (r >> 1 & 3)),
+// both distinct over r, so ldmatrix stays conflict-free without padding.
 template <int HD>
 struct Tile {
   static constexpr int CH = HD / 8;
   static constexpr int MASK = (CH < 8 ? CH : 8) - 1;
+  static_assert(CH <= 8 || CH % 8 == 0 || CH == 12, "tile swizzle");
   __device__ static __forceinline__ int at(int r, int c) {
-    return (r * CH + (c ^ (r & MASK))) * 8;
+    if constexpr (CH == 12) {
+      const int s = c < 8 ? c ^ (r & 7) : 8 + ((c - 8) ^ ((r >> 1) & 3));
+      return (r * CH + s) * 8;
+    } else {
+      return (r * CH + (c ^ (r & MASK))) * 8;
+    }
   }
 };
 
@@ -559,6 +579,7 @@ int launch_hd(bool f32, int hd, const void* q, const void* k, const void* v,
     FLASH_HD(16)
     FLASH_HD(32)
     FLASH_HD(64)
+    FLASH_HD(96)
     FLASH_HD(128)
     FLASH_HD(256)
     default:

@@ -26,7 +26,7 @@ from ...models.attention import FULL_WINDOW
 from .._build import Kernel
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

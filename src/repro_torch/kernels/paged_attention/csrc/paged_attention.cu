@@ -19,7 +19,8 @@
 // shapes the bytes take a few microseconds at 3.35 TB/s.  What keeps a
 // kernel from that is parallelism: one block per (lane, KV head) streams
 // a lane's whole context through one SM, and gemma3-1b's decode has
-// B x KV = 4 such blocks on 132 SMs.
+// B x KV = 4 such blocks on 132 SMs.  Head dims 16, 32, 64, 96, 128 and 256
+// (phi-3-vision's 96 splits a token over 8 or 16 threads, see Tiling).
 //
 // Design: flash-decoding over pages.  The lane's live positions (the cached
 // [lo, hi], then in self mode the position seq_len) are cut into n_splits
@@ -30,7 +31,8 @@
 // n_splits * ceil(G / 8)): a block takes one chunk of one lane for up to 8
 // query heads.  The Pallas grid walks every page slot because its grid is
 // static; here the block loops over its chunk's live positions only.  A
-// token is read by TPT threads with 16-byte loads along hd; the block's 8
+// token is read by TPT threads with 16-byte loads along hd (8-byte ones at
+// hd 96, where TPT stays a power of two: Tiling); the block's 8
 // warps work on 8 * 32 / TPT tokens at a time, UNROLL deep, each thread
 // group keeping its own running max m, denominator l and accumulator in f32
 // (registers).  The groups merge in a fixed order (shuffles inside a warp,
@@ -51,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -60,16 +63,28 @@ constexpr int MAXG = 8;       // query heads per block; grid.z covers G > 8
 constexpr int UNROLL = 4;     // tokens each thread group has in flight
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ void load16(const float* p, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+// one vector load of B bytes (16, 8 or 4) into B / sizeof(T) floats
+template <int B>
+__device__ __forceinline__ void load_vec(const float* p, float* dst) {
+  if constexpr (B == 16) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  } else if constexpr (B == 8) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x; dst[1] = v.y;
+  } else {
+    dst[0] = *p;
+  }
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
+template <int B>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* dst) {
+  using V = std::conditional_t<B == 16, uint4,
+                               std::conditional_t<B == 8, uint2, unsigned>>;
+  const V v = *reinterpret_cast<const V*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < B / 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
@@ -85,13 +100,32 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);   // round to nearest even, as torch's .to()
 }
 
+constexpr int pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+// A token's hd elements split over TPT threads, a power of two so that
+// the shuffles that reduce a score stay inside the group and a warp holds
+// whole groups: HD / (16 / sizeof(T)) 16-byte loads where that count is a
+// power of two (at most 32), else the next power of two below it, each
+// thread then reading its ELEMS with the widest load that divides them
+// (hd 96: 8 threads x 12 bf16 in three 8-byte loads, 16 threads x 6 f32
+// in three 8-byte loads).
 template <typename T, int HD>
 struct Tiling {
-  static constexpr int VEC = 16 / sizeof(T);               // elements per load
-  static constexpr int TPT = HD / VEC < 32 ? HD / VEC : 32;  // threads per token
+  static constexpr int TPT = pow2_floor(
+      HD * static_cast<int>(sizeof(T)) / 16 < 32
+          ? HD * static_cast<int>(sizeof(T)) / 16 : 32);  // threads per token
   static constexpr int ELEMS = HD / TPT;                    // per thread
+  static constexpr int ROW_BYTES = ELEMS * static_cast<int>(sizeof(T));
+  static constexpr int LOAD = ROW_BYTES % 16 == 0 ? 16
+                              : ROW_BYTES % 8 == 0 ? 8 : 4;  // bytes a load
+  static constexpr int VEC = LOAD / static_cast<int>(sizeof(T));
   static constexpr int GPW = 32 / TPT;                      // groups per warp
   static constexpr int GROUPS = WARPS * GPW;
+  static_assert(TPT * ELEMS == HD && ELEMS % VEC == 0, "head dim tiling");
 };
 
 // NG: the power of two >= min(G, MAXG) query heads a block holds state
@@ -199,8 +233,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
       }
 #pragma unroll
       for (int e = 0; e < C::ELEMS; e += C::VEC) {
-        load16(kp + e, &kf[u][e]);
-        load16(vp + e, &vf[u][e]);
+        load_vec<C::LOAD>(kp + e, &kf[u][e]);
+        load_vec<C::LOAD>(vp + e, &vf[u][e]);
       }
     }
 #pragma unroll
@@ -383,6 +417,7 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp,
     PAGED_HD(16)
     PAGED_HD(32)
     PAGED_HD(64)
+    PAGED_HD(96)
     PAGED_HD(128)
     PAGED_HD(256)
     default:

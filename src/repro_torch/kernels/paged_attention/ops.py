@@ -41,7 +41,7 @@ from ...models.attention import FULL_WINDOW
 from .._build import Kernel
 from .ref import paged_attention_plain
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS_PER_BLOCK = 8   # MAXG of the kernel: query heads one block takes
 MIN_CHUNK = 32            # positions a split takes at the least

@@ -48,13 +48,16 @@ from ..serve.scheduler import Request, Scheduler, make_scheduler_config
 def synth_requests(cfg, n: int, rng: np.random.RandomState,
                    priority_every: int = 0) -> list[Request]:
     """Larson-style synthetic request mix (the JAX launcher's, draw for
-    draw).  ``priority_every=k`` marks every k-th request priority 1."""
+    draw): a vlm request also carries 4 patch rows of ``randn``.
+    ``priority_every=k`` marks every k-th request priority 1."""
     reqs = []
     for rid in range(n):
         plen = int(rng.pareto(2.0) * 20) % 96 + 8
         reqs.append(Request(
             rid=rid,
             tokens=rng.randint(0, cfg.vocab_size, size=plen).astype(np.int32),
+            patches=(rng.randn(4, cfg.d_model).astype(np.float32)
+                     if cfg.family == "vlm" else None),
             priority=1 if priority_every and rid and rid % priority_every == 0
             else 0,
         ))

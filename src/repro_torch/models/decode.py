@@ -27,7 +27,7 @@ from ..core.paged_kv import PagedKVState
 from ..kernels.paged_attention.ops import paged_decode_attention_op
 from . import mamba2 as m2
 from .attention import FULL_WINDOW
-from .layers import apply_rope, mlp_apply, out_project, rmsnorm
+from .layers import apply_rope, mlp_apply, out_project, qkv_project, rmsnorm
 from .transformer import (AttnBlock, hybrid_attn_flags, hybrid_kv_slots,
                           layer_windows)
 
@@ -58,12 +58,10 @@ def _attn_layer_step(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     """One attention block for one new token per lane; returns ``(x, k,
     v)`` with the token's K/V ``[B, KV, hd]``."""
     hd = cfg.resolved_head_dim
-    B = x.shape[0]
     positions = paged.seq_lens
     h = rmsnorm(lp.ln_attn, x)
-    q = (h @ lp.wq).reshape(B, cfg.num_heads, hd)
-    k = (h @ lp.wk).reshape(B, cfg.num_kv_heads, hd)
-    v = (h @ lp.wv).reshape(B, cfg.num_kv_heads, hd)
+    q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
+                          cfg.num_kv_heads, hd, lp.bq, lp.bk, lp.bv)
     q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
     attn = paged_decode_attention_op(

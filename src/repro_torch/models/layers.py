@@ -67,6 +67,16 @@ def dense_init(shape: tuple, dtype: torch.dtype, device: torch.device,
     return w.mul_(1.0 / math.sqrt(shape[0])).to(dtype)
 
 
+def bias_init(n: int, fan_in: int, dtype: torch.dtype, device: torch.device,
+              gen: torch.Generator) -> torch.Tensor:
+    """A projection bias ``[n]`` drawn like one row of that projection's
+    weight.  The JAX package initialises QKV biases to zero; random ones
+    make a run on the card exercise the bias."""
+    w = torch.empty((n,), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
 def init_embedding(vocab: int, d: int, dtype: torch.dtype,
                    device: torch.device, gen: torch.Generator) -> torch.Tensor:
     w = torch.empty((vocab, d), dtype=torch.float32, device=device)
@@ -74,12 +84,19 @@ def init_embedding(vocab: int, d: int, dtype: torch.dtype,
 
 
 def qkv_project(wq, wk, wv, x: torch.Tensor, num_heads: int,
-                num_kv_heads: int, head_dim: int):
-    """``x [..., T, d]`` -> q ``[..., T, H, hd]``, k/v ``[..., T, KV, hd]``."""
+                num_kv_heads: int, head_dim: int, bq=None, bk=None, bv=None):
+    """``x [..., T, d]`` -> q ``[..., T, H, hd]``, k/v ``[..., T, KV, hd]``.
+    A bias (qwen2's ``bq [H*hd]``, ``bk``/``bv [KV*hd]``) is added to its
+    product, before any RoPE, as in the JAX package."""
     lead = x.shape[:-1]
-    return ((x @ wq).reshape(*lead, num_heads, head_dim),
-            (x @ wk).reshape(*lead, num_kv_heads, head_dim),
-            (x @ wv).reshape(*lead, num_kv_heads, head_dim))
+
+    def proj(w, b, heads):
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y.reshape(*lead, heads, head_dim)
+    return (proj(wq, bq, num_heads), proj(wk, bk, num_kv_heads),
+            proj(wv, bv, num_kv_heads))
 
 
 def out_project(wo: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:

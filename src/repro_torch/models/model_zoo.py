@@ -29,6 +29,8 @@ _BLOCK_KEYS = {          # AttnBlock attribute -> path in the JAX layer tree
     "wv": ("attn", "wv"), "wo": ("attn", "wo"), "ln_mlp": ("ln_mlp",),
     "w_in": ("mlp", "w_in"), "w_out": ("mlp", "w_out"),
 }
+_BIAS_KEYS = {"bq": ("attn", "bq"), "bk": ("attn", "bk"),   # qkv_bias only
+              "bv": ("attn", "bv")}
 _MAMBA_KEYS = ("in_proj", "out_proj", "conv_w", "conv_b", "A_log", "D",
                "dt_bias", "norm_scale")
 
@@ -54,7 +56,8 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
 
     ``tree["layers"]`` is either the JAX package's stacked layout (every
     leaf ``[num_layers, ...]``) or a list of per-layer trees; it is
-    unstacked into the module's layers.  The hybrid tree's layers are
+    unstacked into the module's layers.  With ``cfg.qkv_bias`` each block
+    also carries ``attn.bq/bk/bv``.  The hybrid tree's layers are
     ``{ln, mamba: {in_proj, ...}}`` beside one ``shared_attn`` block.
     ``dtype`` defaults to the arrays' own; the Mamba2 ``A_log``, ``D`` and
     ``dt_bias`` stay f32, as in the JAX tree.
@@ -78,8 +81,10 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
             sub = sub[key]
         return sub if i is None else sub[i]
 
+    keys = {**_BLOCK_KEYS, **_BIAS_KEYS} if cfg.qkv_bias else _BLOCK_KEYS
+
     def load_block(block, sub, i=None):
-        for name, path in _BLOCK_KEYS.items():
+        for name, path in keys.items():
             getattr(block, name).data = tensor(leaf(sub, path, i))
 
     for i, layer in enumerate(model.layers):

@@ -6,9 +6,12 @@ Parameters keep the JAX tree's names and layouts, one module per layer
 
     embed [V, d]   final_norm [d]   unembed [d, V]
     AttnBlock: ln_attn [d], wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d],
+               (with ``qkv_bias``) bq [H*hd], bk/bv [KV*hd],
                ln_mlp [d], w_in [d, 2*ff], w_out [ff, d]
 
-:class:`DenseLM` has one :class:`AttnBlock` per layer.  :class:`HybridLM`
+:class:`DenseLM` has one :class:`AttnBlock` per layer; it also serves the
+vlm family (phi-3-vision), whose forward takes the patch embeddings as a
+prefix of rows ahead of the tokens' (``prefix_embeds``).  :class:`HybridLM`
 (zamba2) has one :class:`HybridLayer` (``ln`` and a
 :class:`~repro_torch.models.mamba2.Mamba2`) per layer and ONE
 ``shared_attn`` block, applied after every ``attn_every``-th layer with
@@ -28,8 +31,8 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention_op
 from . import mamba2 as m2
 from .attention import FULL_WINDOW, mea_attention
-from .layers import (apply_rope, dense_init, init_embedding, mlp_apply,
-                     out_project, qkv_project, rmsnorm)
+from .layers import (apply_rope, bias_init, dense_init, init_embedding,
+                     mlp_apply, out_project, qkv_project, rmsnorm)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -53,7 +56,8 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + gated MLP block."""
+    """Pre-norm attention + gated MLP block.  Without ``cfg.qkv_bias`` the
+    biases ``bq``/``bk``/``bv`` are ``None``."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator]):
@@ -70,6 +74,10 @@ class AttnBlock(nn.Module):
         self.wq = w((d, H * hd))
         self.wk = w((d, KV * hd))
         self.wv = w((d, KV * hd))
+        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            self.register_parameter(name, None if not cfg.qkv_bias else _param(
+                torch.empty((n,), dtype=dtype, device=device) if gen is None
+                else bias_init(n, d, dtype, device, gen)))
         self.wo = w((H * hd, d))
         self.ln_mlp = _param(torch.zeros((d,), dtype=dtype, device=device))
         self.w_in = w((d, 2 * ff))
@@ -102,40 +110,52 @@ class _LM(nn.Module):
         return x @ self.unembed
 
 
-def _check_attention(cfg: ArchConfig, family: str, patterns: tuple) -> None:
-    if cfg.family != family or cfg.attn_pattern not in patterns \
-            or cfg.qkv_bias or cfg.act not in ("swiglu", "geglu") \
-            or cfg.norm != "rmsnorm":
+def _check_attention(cfg: ArchConfig, families: tuple, patterns: tuple
+                     ) -> None:
+    if cfg.family not in families or cfg.attn_pattern not in patterns \
+            or cfg.act not in ("swiglu", "geglu") or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"repro_torch serves the dense RMSNorm family with full or "
-            f"local:global attention and the hybrid family with full "
-            f"attention, each with a gated MLP and no QKV bias, so far; "
-            f"{cfg.name!r} needs a later slice (ROADMAP.md, Queue 1)")
+            f"repro_torch serves the dense and vlm RMSNorm families with "
+            f"full or local:global attention and the hybrid family with full "
+            f"attention, each with a gated MLP, so far; sliding-window "
+            f"attention, MoE, the ssm and audio families, LayerNorm and "
+            f"plain GELU wait for later slices, so {cfg.name!r} does too "
+            f"(ROADMAP.md, Queue 1)")
 
 
 class DenseLM(_LM):
-    """The dense decoder LM.  ``gen=None`` leaves the weights uninitialized
-    for a caller that loads them (:func:`repro_torch.models.model_zoo
-    .params_from_numpy`)."""
+    """The dense decoder LM (also the vlm family's backbone).  ``gen=None``
+    leaves the weights uninitialized for a caller that loads them
+    (:func:`repro_torch.models.model_zoo.params_from_numpy`)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
-        _check_attention(cfg, "dense", ("full", "local_global"))
+        _check_attention(cfg, ("dense", "vlm"), ("full", "local_global"))
         super().__init__(cfg, dtype, device, gen)
         self.layers = nn.ModuleList(
             AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                prefix_kv=None, pos_offset: int = 0):
+                prefix_kv=None, pos_offset: int = 0, prefix_embeds=None):
         """Full-sequence logits ``[B, S, V]``; with ``return_kv`` also the
         per-layer ``(k, v)``, each ``[num_layers, B, S, KV, hd]``.
+
+        ``prefix_embeds [B, P, d]`` (vlm): patch embeddings that take
+        positions ``[0, P)`` ahead of the tokens; S then counts them too.
 
         ``prefix_kv`` = (pk, pv), each ``[num_layers, B, P, KV, hd]``: cached
         K/V of absolute positions ``[0, P)`` (roped there when written),
         with ``pos_offset == P``.  ``tokens`` then continue the sequence
         from position P, and logits and K/V come back for them alone (the
-        prefix cache's prefill skip)."""
+        prefix cache's prefill skip); not with ``prefix_embeds``, as in
+        the JAX package."""
+        if (prefix_kv is not None or pos_offset) and prefix_embeds is not None:
+            raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
+                             "plain attention families without vlm/encoder "
+                             f"prefixes (family={self.cfg.family!r})")
         x = self.embed[tokens.long()]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         ks, vs = [], []
         for li, (lp, window) in enumerate(zip(self.layers,
                                               layer_windows(self.cfg))):
@@ -187,7 +207,7 @@ class HybridLM(_LM):
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
-        _check_attention(cfg, "hybrid", ("full",))
+        _check_attention(cfg, ("hybrid",), ("full",))
         super().__init__(cfg, dtype, device, gen)
         self.spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
         self.layers = nn.ModuleList(
@@ -251,7 +271,7 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     hd = cfg.resolved_head_dim
     h = rmsnorm(lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
-                          cfg.num_kv_heads, hd)
+                          cfg.num_kv_heads, hd, lp.bq, lp.bk, lp.bv)
     positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
                                         device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -285,8 +305,10 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def forward(params: _LM, tokens: torch.Tensor, return_kv: bool = False,
-            prefix_kv=None, pos_offset: int = 0):
+            prefix_kv=None, pos_offset: int = 0, prefix_embeds=None):
     """Full-sequence logits (and per-layer K/V with ``return_kv``); see
-    :meth:`DenseLM.forward` for the cached prefix."""
+    :meth:`DenseLM.forward` for the cached prefix and the vlm patch
+    prefix (``prefix_embeds``, which the hybrid family does not take)."""
+    extra = {} if prefix_embeds is None else {"prefix_embeds": prefix_embeds}
     return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
-                  pos_offset=pos_offset)
+                  pos_offset=pos_offset, **extra)

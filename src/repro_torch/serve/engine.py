@@ -1,5 +1,5 @@
 """Serving engine: scheduler-driven continuous batching on the paged KV
-(port of :mod:`repro.serve.engine`, dense and hybrid families).
+(port of :mod:`repro.serve.engine`, dense, vlm and hybrid families).
 
 Admission is batched: one prefill per (prompt bucket, cached prefix)
 group, then ONE support-core burst (``paged_kv.admit_prefill_many``) for
@@ -37,6 +37,13 @@ decode step folds it a second time and writes its K/V at position
 ``len(prompt)``.  The port keeps this for parity (ROADMAP.md, Queue 3).
 A recurrent family never rides the prefix cache (:meth:`cache_probe` is
 0).
+
+The vlm family (phi-3-vision) admits a request's patch embeddings ahead of
+its prompt: they take positions ``[0, P)`` of the lane's K/V, so the lane
+holds ``P + len(prompt)`` tokens after admission, its first decode token
+sits at position ``P + len(prompt)``, and a preempted request prefills its
+patches again with prompt + output.  Such a request never rides the
+prefix cache.
 """
 from __future__ import annotations
 
@@ -149,6 +156,7 @@ class AdmissionItem(NamedTuple):
 
     lane: int
     tokens: np.ndarray                    # [T] int32
+    patches: Optional[np.ndarray] = None  # [P, d] (vlm)
     cached_len: int = 0                   # prefix tokens served by the cache
 
 
@@ -185,7 +193,7 @@ def run_admission(eng: "ServingEngine", sched, preemption: bool = False,
                                         alias=alias)
     if not plan.size:
         return False
-    items = [AdmissionItem(lane, r.tokens, r.cached_len)
+    items = [AdmissionItem(lane, r.tokens, r.patches, r.cached_len)
              for b in plan.batches for lane, r in b.items]
     failed = eng.admit_many(items)
     sync()
@@ -260,6 +268,8 @@ class ServingEngine:
         # lane -> (pinned token prefix, shared block ids) for lanes whose
         # block tables reference cache-owned pages
         self._aliased: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        # lanes whose K/V opens with a vlm patch prefix: never demoted
+        self._patched: set[int] = set()
         self.admitted_tokens: dict[int, int] = {}
         self.recurrent = cfg.family == "hybrid"
         self.state = ServeState(
@@ -357,8 +367,9 @@ class ServingEngine:
     def cache_probe(self, req) -> int:
         """Plan-time peek: the longest cached prefix (tokens) of the
         request's prompt, with no side effects; 0 for a recurrent family,
-        whose state a cached prefix cannot restore."""
-        if self.cache is None or self.recurrent:
+        whose state a cached prefix cannot restore, and for a request with
+        patches, whose K/V opens with the patch rows."""
+        if self.cache is None or self.recurrent or req.patches is not None:
             return 0
         n, _ = self.cache.probe(np.asarray(req.tokens, np.int32))
         return n
@@ -385,12 +396,17 @@ class ServingEngine:
         release): kept pages are retagged to ``CACHE_OWNER`` so the lanes'
         FREE_ALLs leave them resident, duplicates stay lane-owned for that
         sweep, and the policy's victims are returned for the caller to
-        ride as single frees."""
+        ride as single frees.  A lane admitted behind patches is not
+        demoted: its pages hold patch rows, not the K/V of the tokens the
+        cache would key them by.  (The JAX engine demotes it; a text-only
+        request opening with the same tokens would then read patch K/V.)"""
         ps = self.kvcfg.page_size
         tbl = self.state.paged.block_tables.cpu().numpy()
         retag: list[int] = []
         evicted: list[int] = []
         for lane, toks in kv_tokens.items():
+            if lane in self._patched:
+                continue
             toks = np.asarray(toks, np.int32)
             n = len(toks) // ps
             if not n:
@@ -421,7 +437,10 @@ class ServingEngine:
 
         An item with ``cached_len`` prefills only its uncached suffix, over
         the cached pages' K/V; copy mode writes the prefix K/V into the
-        lane's own pages, alias mode splices the cached pages."""
+        lane's own pages, alias mode splices the cached pages.  An item
+        with ``patches [P, d]`` (vlm) prefills them ahead of its tokens:
+        items group by ``(bucket, P, cached_len)`` and the lane's K/V
+        holds ``P + len(tokens)`` rows."""
         if not items:
             return []
         t_admit0 = time.perf_counter()
@@ -434,18 +453,20 @@ class ServingEngine:
         # lane -> (cache block ids, full prompt) for alias-mode hits
         lane_prefix: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
-        groups: dict[tuple[int, int], list[AdmissionItem]] = {}
+        groups: dict[tuple[int, int, int], list[AdmissionItem]] = {}
         for it in items:
             bucket = pick_bucket(len(it.tokens) - it.cached_len,
                                  self.sched_cfg)
-            groups.setdefault((bucket, it.cached_len), []).append(it)
+            n_prefix = 0 if it.patches is None else it.patches.shape[0]
+            groups.setdefault((bucket, n_prefix, it.cached_len), []
+                              ).append(it)
 
         all_lanes: list[int] = []
         all_len: list[int] = []
         all_next: list[torch.Tensor] = []
         kv_chunks: list[tuple[torch.Tensor, torch.Tensor]] = []
         lane_cached: dict[int, int] = {}
-        for (bucket, cached_len), group in sorted(groups.items()):
+        for (bucket, n_prefix, cached_len), group in sorted(groups.items()):
             k = len(group)
             width = max(W, k)
             toks = np.zeros((width, bucket), np.int32)
@@ -481,9 +502,16 @@ class ServingEngine:
                 prefix_kv = (flat(self.state.paged.k_pages),
                              flat(self.state.paged.v_pages))
                 batch["prefix_k"], batch["prefix_v"] = prefix_kv
-            elif self.cache is not None and not self.recurrent:
+            elif self.cache is not None and not self.recurrent \
+                    and not n_prefix:
                 for it in group:                   # record the miss
                     self.cache.probe(it.tokens, touch=True)
+            if n_prefix:
+                pe = np.zeros((width, n_prefix, self.cfg.d_model), np.float32)
+                for i, it in enumerate(group):
+                    pe[i] = it.patches
+                batch["patches"] = torch.as_tensor(
+                    pe, dtype=self.params.embed.dtype, device=dev)
             res = self._prefill(self.params, batch)
             self.stats.prefill_passes += 1
             if self.recurrent:
@@ -499,9 +527,12 @@ class ServingEngine:
             # alias mode installs the suffix alone; the cached prefix rides
             # as prefix_lens
             inst_cached = 0 if alias else cached_len
-            all_len.extend(inst_cached + int(n) for n in lengths[:k])
+            all_len.extend(inst_cached + n_prefix + int(n)
+                           for n in lengths[:k])
             for it in group:
                 lane_cached[int(it.lane)] = cached_len
+                if n_prefix:
+                    self._patched.add(int(it.lane))
             ks, vs = res.kv                      # [width, L, T, kv, hd]
             ks, vs = ks[:k], vs[:k]
             if prefix_kv is not None and not alias:
@@ -608,11 +639,13 @@ class ServingEngine:
         self.state = self.state._replace(rec=RecurrentState(ssm=ssm,
                                                             conv=conv))
 
-    def admit(self, lane: int, tokens: np.ndarray) -> bool:
-        """Prefill one sequence into ``lane``; False when the allocator
-        rejected it (the lane is left inactive and clean)."""
+    def admit(self, lane: int, tokens: np.ndarray,
+              patches: Optional[np.ndarray] = None) -> bool:
+        """Prefill one sequence (behind its ``patches``, vlm) into
+        ``lane``; False when the allocator rejected it (the lane is left
+        inactive and clean)."""
         return not self.admit_many([AdmissionItem(
-            lane, np.asarray(tokens, np.int32))])
+            lane, np.asarray(tokens, np.int32), patches)])
 
     # ---------------- decode ----------------
 
@@ -666,6 +699,7 @@ class ServingEngine:
             shared = self._unalias_lanes(lanes)
             if shared:
                 extra = (extra or []) + shared
+        self._patched.difference_update(int(lane) for lane in lanes)
         pkts = release_packet_array(list(lanes), self.kvcfg.max_lanes)
         paged, stats = pkv.release_packets(
             self.kvcfg, self.state.paged,

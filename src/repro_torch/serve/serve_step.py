@@ -1,5 +1,5 @@
 """Serving steps: decode (one token per lane per step) and prefill (port of
-:mod:`repro.serve.serve_step`, dense and hybrid families).
+:mod:`repro.serve.serve_step`, dense, vlm and hybrid families).
 
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
@@ -126,6 +126,10 @@ def make_family_prefill(cfg: ArchConfig):
     right-padded ``tokens [B, T]`` with real ``lengths [B]`` (causal
     masking keeps the padding invisible to the real positions).
 
+    A vlm batch adds ``patches [B, P, d]``: they take positions ``[0, P)``,
+    the tokens follow, the K/V cover all ``P + T`` rows and the last
+    logits are row ``P + lengths - 1``.
+
     The hybrid family folds every token into its state, so its batches
     must be exact-length (the scheduler's exact buckets); it returns the
     states a decode continues from and no logits: the engine seeds a
@@ -145,7 +149,12 @@ def make_family_prefill(cfg: ArchConfig):
                                         vs.transpose(0, 1)),
                                  RecurrentState(ssm=ssm, conv=conv))
         pk = batch.get("prefix_k")
-        if pk is None:
+        last = batch["lengths"].long() - 1
+        if cfg.family == "vlm" and batch.get("patches") is not None:
+            logits, (ks, vs) = forward(params, toks, return_kv=True,
+                                       prefix_embeds=batch["patches"])
+            last = last + batch["patches"].shape[1]
+        elif pk is None:
             logits, (ks, vs) = forward(params, toks, return_kv=True)
         else:
             logits, (ks, vs) = forward(
@@ -154,7 +163,7 @@ def make_family_prefill(cfg: ArchConfig):
                            batch["prefix_v"].transpose(0, 1)),
                 pos_offset=pk.shape[2])
         rows = torch.arange(toks.shape[0], device=toks.device)
-        last = logits[rows, batch["lengths"].long() - 1]
-        return PrefillResult(last, (ks.transpose(0, 1), vs.transpose(0, 1)))
+        return PrefillResult(logits[rows, last],
+                             (ks.transpose(0, 1), vs.transpose(0, 1)))
 
     return prefill

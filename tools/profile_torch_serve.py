@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's decode step spends its time on one NVIDIA card.
 
-    python3 tools/profile_torch_serve.py [--arch deepseek-7b|gemma3-1b] [--steps 8]
+    python3 tools/profile_torch_serve.py [--arch ARCH] [--steps 8]
 
 Serves the workload of ``chip_smoke.py``'s full-width phase for ``--arch``
-(published widths, bf16, seeded random weights; its requests, 4 lanes,
-its page size), admits the first batch, runs three decode steps to warm
+(any of its ``WORKLOADS``: published widths, at its depth cut where it has
+one, bf16, seeded random weights; its requests, patches included, 4
+lanes, its page size), admits the first batch, runs three decode steps to warm
 up, then traces ``--steps`` decode steps with ``torch.profiler``.  Prints
 the window's wall time, the summed device kernel time and the device's
 idle share, kernel time by name, and the shares of the port's kernels and
@@ -34,16 +35,15 @@ SHARES = {"support-core kernel": ("support_core",),
 
 
 def main() -> None:
+    from chip_smoke import SERVE_LANES, WORKLOADS, full_width_config, \
+        make_requests
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="deepseek-7b",
-                    choices=["deepseek-7b", "gemma3-1b"])
+    ap.add_argument("--arch", default="deepseek-7b", choices=list(WORKLOADS))
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
-    from chip_smoke import SERVE_LANES, WORKLOADS, make_requests
-    from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_paged_config
     from repro_torch.serve.engine import ServingEngine, run_admission
     from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
@@ -51,7 +51,7 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg, wl = get_config(args.arch), WORKLOADS[args.arch]
+    cfg, wl = full_width_config(args.arch), WORKLOADS[args.arch]
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
                               page_size=wl["page"], dtype=torch.bfloat16)
@@ -80,7 +80,7 @@ def main() -> None:
     if device_us <= 0:
         raise SystemExit("profile_torch_serve: the profiler recorded no "
                          "device time")
-    print(f"{args.arch}: {args.steps} decode steps, "
+    print(f"{args.arch}: {cfg.num_layers} layers, {args.steps} decode steps, "
           f"{int(eng.state.paged.active.sum())} active lanes: wall "
           f"{wall_us / 1e3:.2f} ms ({wall_us / args.steps / 1e3:.2f} ms/step), "
           f"device kernels {device_us / 1e3:.2f} ms, device idle share "
