@@ -204,6 +204,13 @@ WORKLOADS = {
     "phi-3-vision-4.2b": dict(seq=1152, page=16, max_prompt=512, requests=8,
                               new_tokens=32, prompt_lens=(32, 512),
                               patches=576),
+    "rwkv6-7b": dict(seq=2048, page=16, max_prompt=1536, requests=8,
+                     new_tokens=32, prompt_lens=(600, 1500)),
+    # 1500 frame rows a request; prompts of 4-224 tokens, half of the
+    # decoder's 448-token context (the part a previous-text prompt fills)
+    "whisper-medium": dict(seq=448, page=16, max_prompt=224, requests=8,
+                           new_tokens=32, prompt_lens=(4, 224),
+                           frames=1500),
 }
 # full width with a depth cut where all layers would not fit one card:
 # qwen2-72b's 80 layers are 145 GB of bf16 weights; 8 layers are 19 GB
@@ -224,7 +231,19 @@ DENSE_FLASH = {"phi3-medium-14b": (4, 1536, 40, 10, 128),
 # prefill (hd 64, G = 1); the teacher-forced check's prompt and steps
 ZAMBA_PAGED = (4, 32, 1, 64, 16, 129, 6, [1500, 1200, 900, 611])
 ZAMBA_FLASH = (4, 1200, 32, 32, 64)
+# whisper-medium's attention at 4 lanes, 16 heads on 16 x 64: flash with
+# causal off over the encoder (1500 frames) and the cross-attention at
+# prefill (the largest prompt bucket, 224, and 512) and at decode (one
+# query) over the 1500 encoder rows, (B, Tq, Tk); the decoder's paged
+# self-attention (16-token pages, 29-page tables, 24 KV layers)
+WHISPER_FLASH = {"whisper-medium encoder": (4, 1500, 1500),
+                 "whisper-medium cross prefill": (4, 224, 1500),
+                 "whisper-medium cross prefill 512": (4, 512, 1500),
+                 "whisper-medium cross decode": (4, 1, 1500)}
+WHISPER_PAGED = (4, 16, 1, 64, 16, 29, 24, [440, 300, 211, 37])
 TEACHER = dict(prompt=700, steps=8, tol=2e-4)
+# whisper-medium's teacher-forced check: 1500 frame rows, a 124-token prompt
+AUDIO_TEACHER = dict(frames=1500, prompt=124, steps=8, tol=2e-4)
 # phi-3-vision's teacher-forced check: 576 patch rows, a 124-token prompt
 VLM_TEACHER = dict(patches=576, prompt=124, steps=8, tol=2e-4)
 # phase 4c and the multi-engine runs of phase 5: two shards, shared-prefix
@@ -236,13 +255,18 @@ MULTI = dict(engines=2, quantum=4, seq=256, page=8, max_prompt=128,
 SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
 SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128),
                  "zamba2-1.2b": None, "phi3-medium-14b": None,
-                 "qwen2-72b": None, "phi-3-vision-4.2b": None}
+                 "qwen2-72b": None, "phi-3-vision-4.2b": None,
+                 "rwkv6-7b": None, "whisper-medium": None}
 # each reduced config keeps what smoke_config would hide: phi3-medium's
-# G = 4, qwen2's G = 8 (with its QKV bias) and phi-3-vision's hd 96
+# G = 4, qwen2's G = 8 (with its QKV bias), phi-3-vision's hd 96,
+# rwkv6's wkv heads of 64 and whisper's hd 64 over 150 frames (not a
+# multiple of the flash kernel's tile)
 SMALL_DEPTH = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
                "phi3-medium-14b": dict(num_heads=8, num_kv_heads=2),
                "qwen2-72b": dict(num_heads=8, num_kv_heads=1),
-               "phi-3-vision-4.2b": dict(head_dim=96)}
+               "phi-3-vision-4.2b": dict(head_dim=96),
+               "rwkv6-7b": dict(head_dim=64),
+               "whisper-medium": dict(head_dim=64, encoder_seq_len=150)}
 # the archs whose phase 5 adds two shards with prefix caches and the
 # bitmap and buddy policies
 MULTI_ARCHS = ("deepseek-7b", "gemma3-1b", "qwen2-72b")
@@ -1024,8 +1048,9 @@ def paged_parity(dev, errs: Errors) -> None:
                     n_cases += 1
         # serving shapes: deepseek-7b, gemma3-1b's local and global layers,
         # zamba2-1.2b's shared block, phi3-medium (G = 4 on 10 KV heads),
-        # qwen2 (G = 8), phi-3-vision (hd 96); lane 1 at a page boundary,
-        # lane 2 inactive, lane 3 short
+        # qwen2 (G = 8), phi-3-vision (hd 96), whisper-medium's decoder
+        # (hd 64, 16 on 16, seq_len 448); lane 1 at a page boundary, lane
+        # 2 inactive, lane 3 short
         for (KV, G, hd, ps, P, L, seq), windows in (
                 ((32, 1, 128, 8, 33, 30, [119, 64, 40, 3]), (FULL,)),
                 ((1, 4, 256, 16, 129, 26, [1400, 1024, 700, 611]),
@@ -1036,7 +1061,8 @@ def paged_parity(dev, errs: Errors) -> None:
                 ((8, 8, 128, 16, 129, 2, [1500, 1024, 700, 611]),
                  (FULL, 300)),
                 ((32, 1, 96, 16, 73, 2, [1120, 1024, 700, 611]),
-                 (FULL, 300))):
+                 (FULL, 300)),
+                ((16, 1, 64, 16, 29, 24, [440, 256, 211, 37]), (FULL,))):
             case = paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P, L, seq,
                                    [True, True, False, True])
             for window in windows:
@@ -1085,7 +1111,12 @@ def flash_parity(dev, errs: Errors) -> None:
         (4, 1500, 1500, 40, 10, 128, True, FULL),  # phi3-medium-14b
         (4, 1500, 1500, 64, 8, 128, True, FULL),   # qwen2-72b
         (4, 1100, 1100, 32, 32, 96, True, FULL),   # phi-3-vision: 576 + 524
-        (2, 200, 200, 8, 1, 96, True, 64)]         # hd 96 at G = 8, windowed
+        (2, 200, 200, 8, 1, 96, True, 64),         # hd 96 at G = 8, windowed
+        (4, 224, 224, 16, 16, 64, True, FULL)]     # whisper decoder prefill
+    # whisper-medium's non-causal call sites: encoder, cross at prefill
+    # and at decode (Tk = 1500 frames, no multiple of a tile)
+    cases += [(B, Tq, Tk, 16, 16, 64, False, FULL)
+              for B, Tq, Tk in WHISPER_FLASH.values()]
     for dt in (torch.float32, torch.bfloat16):
         for B, Tq, Tk, H, KV, hd, causal, window in cases:
             q = rand(rng, (B, Tq, H, hd), dt, dev)
@@ -1239,6 +1270,10 @@ def determinism(dev) -> None:
     q96 = rand(rng, (4, 1088, 32, 96), torch.bfloat16, dev)
     kv96 = rand(rng, (4, 1088, 32, 96), torch.bfloat16, dev)
     runs["flash hd 96"] = lambda: (flash_attention_op(q96, kv96, kv96),)
+    qx = rand(rng, (4, 224, 16, 64), torch.bfloat16, dev)
+    kvx = rand(rng, (4, 1500, 16, 64), torch.bfloat16, dev)
+    runs["flash non-causal"] = lambda: (
+        flash_attention_op(qx, kvx, kvx, causal=False),)
     for name, fn in runs.items():
         a, b = fn(), fn()
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
@@ -1276,28 +1311,34 @@ def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
                 library_ms=None, shape=shape)
 
 
-def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
+def time_flash(dev, B, T, H, KV, hd, window, P=0, Tk=None) -> dict:
     """Causal bf16 prefill attention at a serving shape: T queries at
     positions ``[P, P + T)`` over ``P + T`` keys (``P`` > 0: the suffix of
-    a prefix-cache hit).  The library yardstick is
-    ``scaled_dot_product_attention`` (``is_causal`` when nothing is
-    masked but the causal triangle, else a boolean mask), timed here and
-    called nowhere in the port."""
+    a prefix-cache hit); with ``Tk``, non-causal attention of T queries
+    over Tk keys (whisper's encoder and cross-attention).  The library
+    yardstick is ``scaled_dot_product_attention`` (``is_causal`` when
+    nothing is masked but the causal triangle, nothing masked when causal
+    is off, else a boolean mask), timed here and called nowhere in the
+    port."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.RandomState(3)
-    Tk = P + T
+    causal = Tk is None
+    Tk = P + T if causal else Tk
     q = rand(rng, (B, T, H, hd), torch.bfloat16, dev)
     k = rand(rng, (B, Tk, KV, hd), torch.bfloat16, dev)
     v = rand(rng, (B, Tk, KV, hd), torch.bfloat16, dev)
-    ms = device_ms(lambda: flash_attention_op(q, k, v, causal=True,
+    ms = device_ms(lambda: flash_attention_op(q, k, v, causal=causal,
                                               window=window, q_offset=P),
                    n=30)
     plain_ms = device_ms(lambda: flash_attention_ref(
-        q, k, v, causal=True, window=window, q_offset=P), n=10)
+        q, k, v, causal=causal, window=window, q_offset=P), n=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window >= Tk and P == 0:
+    if not causal:
+        library_ms = device_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True),
+                               n=30)
+    elif window >= Tk and P == 0:
         library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True), n=30)
     else:
@@ -1307,7 +1348,8 @@ def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
             & (kpos[None, :] > qpos[:, None] - window)
         library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=band,
                                             enable_gqa=True), n=30)
-    pairs = sum(min(P + i + 1, window) for i in range(T))
+    pairs = sum(min(P + i + 1, window) for i in range(T)) if causal \
+        else T * Tk
     ops = 4 * hd * pairs * B * H
     # key rows some query can see: the first query (position P) sees none
     # below P - window + 1
@@ -1319,6 +1361,8 @@ def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
     shape = dict(B=B, T=T, H=H, KV=KV, hd=hd, window=window, pairs=pairs)
     if P:
         shape["q_offset"] = P
+    if not causal:
+        shape.update(Tk=Tk, causal=False)
     print(f"  time flash {shape}: kernel {ms * 1e3:.2f} us/launch, plain "
           f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.2f} us, bound "
           f"{bound * 1e3:.2f} us ({by})")
@@ -1333,8 +1377,9 @@ def time_flash(dev, B, T, H, KV, hd, window, P=0) -> dict:
 def make_requests(cfg, wl, prompt_lens):
     """``wl["requests"]`` requests from ``RandomState(0)``: the launcher's
     synthetic mix, or uniform prompt lengths in ``prompt_lens``, each
-    request's tokens then (vlm) its ``wl["patches"]`` patch rows of
-    ``randn`` in f32, which the engine casts to the model's dtype."""
+    request's tokens then (vlm) its ``wl["patches"]`` patch rows or
+    (audio) its ``wl["frames"]`` frame rows of ``randn`` in f32, which
+    the engine casts to the model's dtype."""
     from repro_torch.launch.serve import synth_requests
     from repro_torch.serve.scheduler import Request
     rng = np.random.RandomState(0)
@@ -1346,7 +1391,9 @@ def make_requests(cfg, wl, prompt_lens):
         toks = rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
         pe = rng.randn(wl["patches"], cfg.d_model).astype(np.float32) \
             if wl.get("patches") else None
-        reqs.append(Request(rid=i, tokens=toks, patches=pe))
+        fr = rng.randn(wl["frames"], cfg.d_model).astype(np.float32) \
+            if wl.get("frames") else None
+        reqs.append(Request(rid=i, tokens=toks, patches=pe, frames=fr))
     return reqs
 
 
@@ -1392,8 +1439,38 @@ def check_patch_rows(eng, checked: list) -> None:
     eng.admit_many = admit
 
 
+def check_enc_out(eng, errs: list) -> None:
+    """Wrap the engine's admission: after each one, every admitted lane's
+    ``enc_out`` must equal the encoder run alone over that request's frames
+    (a batch of one, cast as the engine casts them), within bf16 rounding
+    of a product of another batch shape (max |diff| <= 2e-2 of the
+    output's max |value|); each lane's relative difference lands in
+    ``errs``."""
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    inner = eng.admit_many
+
+    def admit(items):
+        failed = inner(items)
+        launches = FLASH_KERNEL.launches     # the check's own do not count
+        for it in items:
+            if it.lane in failed:
+                continue
+            fr = torch.as_tensor(it.frames, dtype=eng.params.embed.dtype,
+                                 device=eng.device)[None]
+            alone = eng.params.encode(fr)[0].float()
+            got = eng.state.enc_out[it.lane].float()
+            err = float((got - alone).abs().max() / alone.abs().max())
+            if not err <= 2e-2:
+                fail(f"lane {it.lane}'s enc_out differs from the encoder run "
+                     f"alone by {err:.3e} of its max")
+            errs.append(err)
+        FLASH_KERNEL.launches = launches
+        return failed
+    eng.admit_many = admit
+
+
 def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
-          prefill_us=None, patch_rows=None):
+          prefill_us=None, patch_rows=None, enc_errs=None):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
@@ -1406,6 +1483,8 @@ def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
         time_prefill_passes(eng, prefill_us)
     if cfg.family == "vlm":
         check_patch_rows(eng, [] if patch_rows is None else patch_rows)
+    if enc_errs is not None:
+        check_enc_out(eng, enc_errs)
     sched = Scheduler(scfg)
     reqs = make_requests(cfg, wl, prompt_lens)
     step_us: list = []
@@ -1472,6 +1551,13 @@ def full_width_params(dev, arch: str):
     if cfg.family == "vlm":
         extra += (f"; vlm: {cfg.frontend_tokens} patch rows of d_model "
                   f"ahead of each prompt")
+    if cfg.family == "ssm":
+        extra += (f"; rwkv6: {params.spec.heads} wkv heads x "
+                  f"{params.spec.head_dim}, no attention, no K/V")
+    if cfg.family == "audio":
+        extra += (f"; whisper: {cfg.encoder_layers} encoder layers over "
+                  f"{cfg.encoder_seq_len} frame rows, cross-attention after "
+                  f"each decoder layer, LayerNorm, GELU MLP with biases")
     print(f"  {arch}: {depth}, d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
@@ -1503,9 +1589,13 @@ def read_launches() -> dict:
                 flash_attention=FLASH_KERNEL.launches)
 
 
-def check_launches(what: str, launches: dict, want: dict) -> None:
+def check_launches(what: str, launches: dict, want: dict,
+                   off_path: tuple = ()) -> None:
+    """Each kernel launched as often as the engines' counters say, and at
+    least once unless the run's path has no call of it (``off_path``:
+    rwkv6 has no attention)."""
     for name, n in launches.items():
-        if n <= 0 or n != want[name]:
+        if n != want[name] or (n <= 0 and name not in off_path):
             fail(f"{what}: {name} launches {n} != {want[name]} expected "
                  f"from the engines' counters")
 
@@ -1520,11 +1610,13 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     t0 = time.perf_counter()
     prefill_us: list = []
     patch_rows: list = []
+    enc_errs = [] if cfg.family == "audio" else None
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
                                              dev, wl, wl["prompt_lens"],
                                              verbose=True,
                                              prefill_us=prefill_us,
-                                             patch_rows=patch_rows)
+                                             patch_rows=patch_rows,
+                                             enc_errs=enc_errs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1537,22 +1629,37 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
               f"{wl['patches']} patch rows and its prompt "
               f"({min(patch_rows)}-{max(patch_rows)} tokens, charged as "
               f"pages of {wl['page']})")
+    if enc_errs is not None:
+        if len(enc_errs) != eng.stats.admitted:
+            fail(f"{arch}: {len(enc_errs)} admissions checked for their "
+                 f"enc_out, {eng.stats.admitted} made")
+        print(f"  every one of {len(enc_errs)} admitted lanes' enc_out "
+              f"equals the encoder run alone over its {wl['frames']} frame "
+              f"rows (max |diff| / max |enc_out| {max(enc_errs):.3e})")
     s, L = eng.stats, cfg.num_attn_layers
+    # whisper: per prefill pass, the encoder's, the decoder's and the
+    # cross layers' flash calls; per step, the cross layers' (one query)
+    flash_per_pass = cfg.encoder_layers + 2 * L if cfg.encoder_layers else L
+    flash_per_step = L if cfg.encoder_layers else 0
     check_launches(arch, launches, dict(
         support_core_burst=s.commits,
         paged_decode_attention=s.decode_steps * L,
-        flash_attention=s.prefill_passes * L))
+        flash_attention=s.prefill_passes * flash_per_pass
+        + s.decode_steps * flash_per_step),
+        off_path=("paged_decode_attention", "flash_attention")
+        if cfg.family == "ssm" else ())
     decode_tokens = sum(len(r.output) for r in reqs) - len(reqs)
     prompts = [r.prompt_len for r in reqs]
     print(f"  served {len(sched.finished)}/{len(reqs)} requests (prompts "
           f"{min(prompts)}-{max(prompts)} tokens) in {steps} decode steps, "
           f"{wall:.2f}s wall; launches: support core {launches['support_core_burst']}"
-          f" == commits ({s.hmq_admit_bursts} admit + {s.decode_steps} decode "
-          f"+ {s.hmq_release_bursts} release), paged "
+          f" == commits ({s.hmq_admit_bursts} admit + {s.decode_commits} "
+          f"decode + {s.hmq_release_bursts} release), paged "
           f"{launches['paged_decode_attention']} == {s.decode_steps} decode "
           f"steps x {L}, flash {launches['flash_attention']} == "
-          f"{s.prefill_passes} prefill passes x {L}; {s.decode_bursts} decode "
-          f"bursts live")
+          f"{s.prefill_passes} prefill passes x {flash_per_pass}"
+          f"{f' + {s.decode_steps} steps x {flash_per_step}' if flash_per_step else ''}"
+          f"; {s.decode_bursts} decode bursts live")
     tps = decode_tokens / (sum(step_us) / 1e6)
     med = statistics.median(step_us) / 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1568,38 +1675,45 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     paged, rec = eng.state.paged, eng.state.rec
     pool_gb = 2 * paged.k_pages.numel() * paged.k_pages.element_size() / 1e9
     rec_gb = 0.0 if rec is None else sum(
-        t.numel() * t.element_size() for t in rec) / 1e9
+        t.numel() * t.element_size() for t in rec if t is not None) / 1e9
+    enc = eng.state.enc_out
+    enc_gb = 0.0 if enc is None else enc.numel() * enc.element_size() / 1e9
     print(f"  memory: weights {param_gb(params):.2f} GB, KV pool {pool_gb:.2f}"
-          f" GB ({cfg.num_attn_layers} KV layers x {eng.kvcfg.num_pages + 1} "
+          f" GB ({eng.kvcfg.num_kv_layers} KV layers x {eng.kvcfg.num_pages + 1} "
           f"pages, {kv_bytes_per_token(cfg, paged.k_pages.element_size())} "
-          f"bytes a token), recurrent state {rec_gb:.3f} GB")
+          f"bytes a token), recurrent state {rec_gb:.3f} GB, encoder outputs "
+          f"{enc_gb:.3f} GB")
     for name, rep in eng.tenant_report().items():
         print(f"  {name}: {json.dumps(rep)}")
         if rep["used"] or rep["alloc_count"] != rep["free_count"]:
             fail(f"{arch}: tenant {name} ends with {rep['used']} in use "
                  f"({rep['alloc_count']} allocs, {rep['free_count']} frees)")
     if eng.state.rec is not None:
+        # the hybrid grants one slot an admission; rwkv6 none, as the JAX
+        # engine (ROADMAP.md, Queue 3)
+        want = s.admitted if cfg.family == "hybrid" else 0
         slots = eng.tenant_report()["state_slots"]["alloc_count"]
-        if slots != s.admitted or (paged.state_slot >= 0).any():
+        if slots != want or (paged.state_slot >= 0).any():
             fail(f"{arch}: {slots} state slots allocated for {s.admitted} "
-                 f"admissions, or a lane still holds one")
+                 f"admissions (want {want}), or a lane still holds one")
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, tokens_per_s=tps, median_step_ms=med,
                 peak_gib=peak, serve_gib=peak - held,
                 median_prefill_ms=prefill_ms, weight_gb=param_gb(params),
                 kv_pool_gb=pool_gb, decode_steps=s.decode_steps,
-                prefill_passes=s.prefill_passes)
+                prefill_passes=s.prefill_passes, commits=s.commits)
 
 
 def teacher_forced(dev, arch: str, spec: dict) -> list:
     """``arch`` at full width in f32 with TF32 off: a ``spec["prompt"]``-
-    token prompt (vlm: behind ``spec["patches"]`` patch rows of ``randn``)
-    admitted through the engine, then ``spec["steps"]`` decode steps fed
-    given tokens (the seed overwritten, so a recurrent family folds no
-    token twice), each step's logits against the full forward of the same
-    tokens and patches.  Fails above ``spec["tol"]`` of max |decode -
-    forward| / max |logit|."""
+    token prompt (vlm: behind ``spec["patches"]`` patch rows of ``randn``;
+    audio: over ``spec["frames"]`` frame rows) admitted through the
+    engine, then ``spec["steps"]`` decode steps fed given tokens (the seed
+    overwritten, so a recurrent family folds no token twice), each step's
+    logits against the full forward of the same tokens, patches and
+    frames.  Fails above ``spec["tol"]`` of max |decode - forward| / max
+    |logit|."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_paged_config
     from repro_torch.models.transformer import forward
@@ -1609,15 +1723,22 @@ def teacher_forced(dev, arch: str, spec: dict) -> list:
     cfg = get_config(arch)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     n, steps, n_patch = spec["prompt"], spec["steps"], spec.get("patches", 0)
+    n_frames = spec.get("frames", 0)
     rng = np.random.RandomState(0)
     toks = rng.randint(0, cfg.vocab_size, n + steps).astype(np.int32)
     pe = rng.randn(n_patch, cfg.d_model).astype(np.float32) if n_patch \
         else None
-    prefix = None if pe is None else torch.as_tensor(pe, device=dev)[None]
+    fr = rng.randn(n_frames, cfg.d_model).astype(np.float32) if n_frames \
+        else None
+    extra = {}
+    if pe is not None:
+        extra["prefix_embeds"] = torch.as_tensor(pe, device=dev)[None]
+    if fr is not None:
+        extra["encoder_frames"] = torch.as_tensor(fr, device=dev)[None]
     kvcfg = make_paged_config(cfg, seq_len=1024, lanes=1, page_size=16,
                               dtype=torch.float32)
     eng = ServingEngine(cfg, kvcfg, params, device=dev)
-    if not eng.admit(0, toks[:n], patches=pe):
+    if not eng.admit(0, toks[:n], frames=fr, patches=pe):
         fail(f"{arch} teacher-forced: the admission failed")
     errs = []
     for t in range(steps):
@@ -1627,9 +1748,10 @@ def teacher_forced(dev, arch: str, spec: dict) -> list:
         eng.state, logits, _ = eng._decode(eng.params, eng.state)
         ref = forward(params, torch.as_tensor(toks[:n + t + 1],
                                               device=dev)[None],
-                      prefix_embeds=prefix)[0, -1]
+                      **extra)[0, -1]
         errs.append(float((logits[0] - ref).abs().max() / ref.abs().max()))
-    behind = f"{n_patch} patch rows and " if n_patch else ""
+    behind = f"{n_patch} patch rows and " if n_patch else \
+        f"{n_frames} frame rows and " if n_frames else ""
     print(f"  {arch} teacher-forced, f32, TF32 off: {steps} decode steps "
           f"after {behind}a {n}-token prompt; max |decode - forward| / max "
           f"|logit| per step: {', '.join(f'{e:.2e}' for e in errs)} "
@@ -1663,20 +1785,17 @@ def device_profile(fn, steps: int) -> tuple[float, float, float]:
     return us, sum(e.count for e in kernels) / steps, wall_us
 
 
-def hybrid_step_profile(dev, cfg, params, steps: int = 8) -> dict:
-    """Where zamba2's full-width decode step spends the device: phase 4f's
-    first admission batch, 3 warm steps, then ``steps`` steps under
-    ``torch.profiler`` (wall, device time, idle share, launches); then,
-    on the same lanes' state, every layer's Mamba2 block alone and its
-    SSD recurrence (plain PyTorch, as in the reference) alone, each as a
-    share of the step's device time and launches."""
+def step_profile(dev, arch: str, cfg, params, parts, steps: int = 8
+                 ) -> dict:
+    """Where ``arch``'s full-width decode step spends the device: its
+    phase's first admission batch, 3 warm steps, then ``steps`` steps under
+    ``torch.profiler`` (wall, device time, idle share, launches); then, on
+    the same lanes' state, each piece of ``parts(eng)`` (key -> (label,
+    fn)) alone, as a share of the step's device time and launches."""
     from repro_torch.models import make_paged_config
-    from repro_torch.models import mamba2 as m2
-    from repro_torch.models.linear_attention import \
-        linear_attention_decode_step
     from repro_torch.serve.engine import ServingEngine, run_admission
     from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
-    wl = WORKLOADS["zamba2-1.2b"]
+    wl = WORKLOADS[arch]
     kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
                               page_size=wl["page"], dtype=torch.bfloat16)
     scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
@@ -1689,6 +1808,32 @@ def hybrid_step_profile(dev, cfg, params, steps: int = 8) -> dict:
     for _ in range(3):
         eng.step()
     step_us, step_n, wall_us = device_profile(eng.step, steps)
+    out = dict(step_device_ms=step_us / 1e3, step_wall_ms=wall_us / 1e3,
+               idle_share=1 - step_us / wall_us, launches=step_n)
+    print(f"  profile, {steps} decode steps with "
+          f"{int(eng.state.paged.active.sum())} lanes active: "
+          f"{step_n:.0f} launches a step, device {step_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.2f} ms wall a step under the profiler, idle "
+          f"share {out['idle_share']:.3f} ({card_line()})")
+    for key, (label, fn) in parts(eng).items():
+        us, n, _ = device_profile(fn, steps)
+        out[key] = dict(device_share=us / step_us, launch_share=n / step_n,
+                        device_ms=us / 1e3)
+        print(f"  {label}: {us / 1e3:.3f} ms device time in {n:.0f} "
+              f"launches ({us / step_us:.4f} of the step's device time, "
+              f"{n / step_n:.4f} of its launches)")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_parts(eng) -> dict:
+    """zamba2's step pieces: every layer's Mamba2 block, and its SSD
+    recurrence (plain PyTorch, as in the reference)."""
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.linear_attention import \
+        linear_attention_decode_step
+    params, dev = eng.params, eng.device
     rec, spec = eng.state.rec, params.spec
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((SERVE_LANES, spec.d_model), generator=gen, device=dev
@@ -1706,27 +1851,67 @@ def hybrid_step_profile(dev, cfg, params, steps: int = 8) -> dict:
                 conv=rec.conv[i], ssm=rec.ssm[i]))
 
     def ssd():
-        for i in range(cfg.num_layers):
+        for i in range(len(params.layers)):
             linear_attention_decode_step(rec.ssm[i], qk, qk, v, decay)
 
-    out = dict(step_device_ms=step_us / 1e3, step_wall_ms=wall_us / 1e3,
-               idle_share=1 - step_us / wall_us, launches=step_n)
-    print(f"  profile, {steps} decode steps with {SERVE_LANES} lanes active: "
-          f"{step_n:.0f} launches a step, device {step_us / 1e3:.3f} ms of "
-          f"{wall_us / 1e3:.2f} ms wall a step under the profiler, idle "
-          f"share {out['idle_share']:.3f}")
-    for key, label, fn in (("mamba2", "the Mamba2 blocks, every layer",
-                            blocks),
-                           ("ssd", "their SSD recurrence (plain PyTorch)",
-                            ssd)):
-        us, n, _ = device_profile(fn, steps)
-        out[key] = dict(device_share=us / step_us, launch_share=n / step_n)
-        print(f"  {label}: {us / 1e3:.3f} ms device time in {n:.0f} "
-              f"launches ({us / step_us:.4f} of the step's device time, "
-              f"{n / step_n:.4f} of its launches)")
-    del eng
-    torch.cuda.empty_cache()
-    return out
+    return {"mamba2": ("the Mamba2 blocks, every layer", blocks),
+            "ssd": ("their SSD recurrence (plain PyTorch)", ssd)}
+
+
+def rwkv6_parts(eng) -> dict:
+    """rwkv6's step pieces: every layer's time mix, and its wkv
+    recurrence (plain PyTorch, as in the reference)."""
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.models.linear_attention import \
+        linear_attention_decode_step
+    params, dev = eng.params, eng.device
+    rec, spec = eng.state.rec, params.spec
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((SERVE_LANES, spec.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    r, k, v = (torch.randn((SERVE_LANES, spec.heads, spec.head_dim),
+                           generator=gen, device=dev) for _ in range(3))
+    decay = -torch.rand((SERVE_LANES, spec.heads, spec.head_dim),
+                        generator=gen, device=dev)
+
+    def time_mix():
+        for i, layer in enumerate(params.layers):
+            rw.rwkv6_time_mix_step(layer.tm, spec, x, rw.RWKV6DecodeState(
+                wkv=rec.ssm[i], tm_prev=rec.tm_prev[i],
+                cm_prev=rec.cm_prev[i]))
+
+    def wkv():
+        for i, layer in enumerate(params.layers):
+            linear_attention_decode_step(rec.ssm[i], r, k, v, decay,
+                                         strict=True, bonus=layer.tm.bonus_u)
+
+    return {"time_mix": ("the time mixes, every layer", time_mix),
+            "wkv": ("their wkv recurrence (plain PyTorch)", wkv)}
+
+
+def whisper_parts(eng) -> dict:
+    """whisper's step pieces: the cross K/V projected from every lane's
+    ``enc_out`` in every layer (2 x lanes x frames x d x KV*hd
+    multiply-adds a layer, anew each step, as the reference does), and the
+    cross-attention's flash calls (one query over the frames)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.models.transformer import cross_kv
+    params, cfg, enc = eng.params, eng.cfg, eng.state.enc_out
+    kv = [cross_kv(cfg, cp, enc) for cp in params.cross_layers]
+    q = torch.randn((enc.shape[0], 1, cfg.num_heads, cfg.resolved_head_dim),
+                    device=enc.device).to(enc.dtype)
+
+    def project():
+        for cp in params.cross_layers:
+            cross_kv(cfg, cp, enc)
+
+    def attend():
+        for k, v in kv:
+            flash_attention_op(q, k, v, causal=False)
+
+    return {"cross_kv": ("the cross K/V projection, every layer", project),
+            "cross_attention": ("the cross-attention's flash calls, every "
+                                "layer", attend)}
 
 
 def timed_method(obj, name: str) -> list:
@@ -1748,13 +1933,19 @@ def shared_prefix_requests(cfg, n: int = MULTI["requests"]):
     """``n`` requests from ``RandomState(0)``: two shared 64-token prefixes,
     request i opening with prefix ``i % 2`` (round-robin routing sends it
     to shard ``i % 2``, the shard that caches that prefix), then a unique
-    tail of 8-40 tokens."""
+    tail of 8-40 tokens; for the audio family, then each request's frame
+    rows of ``randn``."""
     from repro_torch.serve.scheduler import Request
     rng = np.random.RandomState(0)
     heads = [rng.randint(0, cfg.vocab_size, MULTI["prefix"]) for _ in range(2)]
-    return [Request(rid=i, tokens=np.concatenate([
+    reqs = [Request(rid=i, tokens=np.concatenate([
         heads[i % 2], rng.randint(0, cfg.vocab_size, rng.randint(8, 41))])
         .astype(np.int32)) for i in range(n)]
+    if cfg.family == "audio":
+        for r in reqs:
+            r.frames = rng.randn(cfg.encoder_seq_len, cfg.d_model).astype(
+                np.float32)
+    return reqs
 
 
 def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool,
@@ -2202,18 +2393,21 @@ def device_vs_cpu(dev, arch: str) -> None:
     print(f"  {arch} ({cfg.num_layers} layers, {cfg.num_heads} heads on "
           f"{cfg.num_kv_heads} KV heads x {cfg.resolved_head_dim}"
           f"{', QKV bias' if cfg.qkv_bias else ''}"
-          f"{', 4 patch rows a request' if cfg.family == 'vlm' else ''}, "
+          f"{', 4 patch rows a request' if cfg.family == 'vlm' else ''}"
+          f"{f', {cfg.encoder_seq_len} frame rows a request' if cfg.family == 'audio' else ''}, "
           f"windows {[cfg.window] if cfg.window else 'none'}"
           f"{f', attention every {cfg.attn_every}' if cfg.attn_every else ''}"
           f"): cuda and cpu agree on "
           f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
           f"(prompts {min(prompts)}-{max(prompts)}), allocator state "
           f"bit-identical")
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         # a recurrent family never hits a prefix cache: two shards without
         # one, under the free list and under buddy
         policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
                              policies=("freelist", "buddy"), cache=False)
+    elif cfg.family == "audio":
+        audio_multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
     elif arch in MULTI_ARCHS:
         multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
 
@@ -2264,6 +2458,42 @@ def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
           f"commits), shared allocator state bit-identical; tokens equal the "
           f"cache-off run's")
     policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, og)
+
+
+def audio_multi_device_vs_cpu(dev, arch: str, cfg, params_cpu,
+                              params_gpu) -> None:
+    """Two shards with the cache on (copy mode), shared-prefix prompts
+    over their own frames, on the card and on the CPU: identical tokens
+    and shared allocator state; no page demoted into either shard's cache
+    (a lane's K/V depends on its audio), and tokens equal the cache-off
+    run's on the card."""
+    runs = {}
+    for name, p, d, on in (("cuda", params_gpu, dev, True),
+                           ("cpu", params_cpu, "cpu", True),
+                           ("cuda, cache off", params_gpu, dev, False)):
+        reqs = shared_prefix_requests(cfg, MULTI["small_requests"])
+        me = multi_engine(cfg, p, torch.float32, d, on, False)
+        me.serve(reqs, max_new_tokens=MULTI["new_tokens"], validate=True)
+        check_multi_served(me, reqs, f"{arch} multi-engine {name}")
+        if on and any(e.cache.pages or e.stats.cache_inserts
+                      or e.stats.cache_hits for e in me.engines):
+            fail(f"{arch} multi-engine {name}: an audio lane was demoted "
+                 f"into the cache or hit it")
+        runs[name] = (me, {r.rid: list(r.output) for r in reqs})
+    (mg, og), (mc, oc) = runs["cuda"], runs["cpu"]
+    if og != oc or og != runs["cuda, cache off"][1]:
+        fail(f"{arch} multi-engine: tokens differ between cuda and cpu, or "
+             f"from the cache-off run")
+    for field in mg.alloc._fields:
+        if not torch.equal(getattr(mg.alloc, field).cpu(),
+                           getattr(mc.alloc, field)):
+            fail(f"{arch} multi-engine: shared allocator field {field} "
+                 f"differs between cuda and cpu")
+    print(f"  {arch} two shards, cache on: cuda and cpu agree on "
+          f"{sum(map(len, og.values()))} tokens over "
+          f"{mg.stats.decode_steps} engine-steps and {mg.stats.windows} "
+          f"windows, shared allocator state bit-identical; no page demoted "
+          f"into either cache; tokens equal the cache-off run's")
 
 
 def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
@@ -2443,7 +2673,8 @@ def main() -> None:
                                        [1400, 1024, 700, 611], FULL),
         "zamba2-1.2b": time_paged(dev, *ZAMBA_PAGED, FULL),
         **{arch: time_paged(dev, *shape, FULL)
-           for arch, shape in DENSE_PAGED.items()}}
+           for arch, shape in DENSE_PAGED.items()},
+        "whisper-medium": time_paged(dev, *WHISPER_PAGED, FULL)}
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
@@ -2453,6 +2684,10 @@ def main() -> None:
            for arch, shape in DENSE_FLASH.items()}}
     for name, (T, P, *shape) in OFFSET_SHAPES.items():
         t_flash[name] = time_flash(dev, 4, T, *shape, P=P)
+    t_flash["whisper-medium decoder"] = time_flash(dev, 4, 224, 16, 16, 64,
+                                                   FULL)
+    for name, (B, Tq, Tk) in WHISPER_FLASH.items():
+        t_flash[name] = time_flash(dev, B, Tq, 16, 16, 64, FULL, Tk=Tk)
 
     print("== 4. serve deepseek-7b at full width")
     cfg, params = full_width_params(dev, "deepseek-7b")
@@ -2487,7 +2722,8 @@ def main() -> None:
     cfg, params = full_width_params(dev, "zamba2-1.2b")
     served["zamba2-1.2b"] = serve_full_width(dev, "zamba2-1.2b", cfg,
                                              params)
-    served["zamba2-1.2b"]["profile"] = hybrid_step_profile(dev, cfg, params)
+    served["zamba2-1.2b"]["profile"] = step_profile(dev, "zamba2-1.2b", cfg,
+                                                    params, hybrid_parts)
     del params
     torch.cuda.empty_cache()
     served["zamba2-1.2b"]["teacher_forced_rel_err"] = teacher_forced(
@@ -2506,10 +2742,26 @@ def main() -> None:
         torch.cuda.empty_cache()
     served["phi-3-vision-4.2b"]["teacher_forced_rel_err"] = teacher_forced(
         dev, "phi-3-vision-4.2b", VLM_TEACHER)
+    for phase, arch, what, parts, spec in (
+            ("4j", "rwkv6-7b", "32 RWKV6 layers, 64 wkv heads x 64, no "
+             "attention", rwkv6_parts, TEACHER),
+            ("4k", "whisper-medium", "24 encoder layers over 1500 frame "
+             "rows, 24 decoder layers with cross-attention, 16 heads x 64",
+             whisper_parts, AUDIO_TEACHER)):
+        print(f"== {phase}. serve {arch} at full width ({what}), then "
+              f"decode against forward in f32")
+        cfg, params = full_width_params(dev, arch)
+        served[arch] = serve_full_width(dev, arch, cfg, params)
+        served[arch]["profile"] = step_profile(dev, arch, cfg, params, parts)
+        del params
+        torch.cuda.empty_cache()
+        served[arch]["teacher_forced_rel_err"] = teacher_forced(dev, arch,
+                                                                spec)
 
     print("== 5. device against cpu")
     for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b",
-                 "phi3-medium-14b", "qwen2-72b", "phi-3-vision-4.2b"):
+                 "phi3-medium-14b", "qwen2-72b", "phi-3-vision-4.2b",
+                 "rwkv6-7b", "whisper-medium"):
         device_vs_cpu(dev, arch)
 
     print("== 6. result")
@@ -2546,6 +2798,9 @@ def main() -> None:
              dense_serves={a: {k: v for k, v in served[a].items()
                                if k != "launches"}
                            for a in DENSE_PAGED},
+             family_serves={a: {k: v for k, v in served[a].items()
+                                if k != "launches"}
+                            for a in ("rwkv6-7b", "whisper-medium")},
              plain_policies=dict(card_vs_cpu_bursts=pol_checked,
                                  times=t_pol),
              open_loop={k: v for k, v in

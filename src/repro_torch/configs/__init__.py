@@ -1,4 +1,4 @@
-"""Per-architecture configs + registry (the dense and hybrid families of the port)."""
+"""Per-architecture configs + registry (the families the port serves)."""
 from .base import ARCH_IDS, ArchConfig, get_config, register, smoke_config
 
 __all__ = ["ARCH_IDS", "ArchConfig", "get_config", "register", "smoke_config"]

@@ -6,9 +6,12 @@ id.  The port carries the dense family -- ``deepseek-7b`` (full attention),
 ``gemma3-1b`` (local:global windows, GQA), ``phi3-medium-14b`` (GQA 4:1)
 and ``qwen2-72b`` (GQA 8:1, QKV bias, RoPE theta 1e6) --, the vlm family
 -- ``phi-3-vision-4.2b`` (a phi3-mini backbone at head dim 96 behind a
-prefix of precomputed patch embeddings) -- and the hybrid family --
-``zamba2-1.2b`` (Mamba2 layers with one shared attention block); the other
-arch modules are ported with their model families (ROADMAP.md, Queue 1).
+prefix of precomputed patch embeddings) --, the hybrid family --
+``zamba2-1.2b`` (Mamba2 layers with one shared attention block) --, the
+ssm family -- ``rwkv6-7b`` (attention-free, data-dependent decay) -- and
+the audio family -- ``whisper-medium`` (an encoder over precomputed frame
+embeddings, a decoder with cross-attention); the other arch modules are
+ported with their model families (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ _REGISTRY: dict[str, "ArchConfig"] = {}
 
 #: arch ids the port can build today
 ARCH_IDS = ("deepseek-7b", "gemma3-1b", "phi3-medium-14b", "qwen2-72b",
-            "phi-3-vision-4.2b", "zamba2-1.2b")
+            "phi-3-vision-4.2b", "zamba2-1.2b", "rwkv6-7b", "whisper-medium")
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
@@ -29,6 +32,8 @@ _MODULE_BY_ID = {
     "qwen2-72b": "qwen2_72b",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-7b": "rwkv6_7b",
+    "whisper-medium": "whisper_medium",
 }
 
 

@@ -453,6 +453,22 @@ def decode_append(
         flush_blocks=torch.full((L,), NO_BLOCK, dtype=I32, device=dev))
 
 
+def empty_decode_stats(cfg: PagedKVConfig, tenants: PagedTenants
+                       ) -> DecodeStats:
+    """All-zero :class:`DecodeStats` of a step that issues no burst (the
+    attention-free decode), shaped like a real one: ``[C]`` per-tenant
+    rows over every class of the tenants' service, occupancy included."""
+    dev = tenants.service.device
+    z = torch.zeros((), dtype=I32, device=dev)
+    zc = torch.zeros((tenants.service.num_classes,), dtype=I32, device=dev)
+    return DecodeStats(
+        core=StepStats(z, z, z, z, z), tenant=TenantStats(zc, zc, zc, zc, zc),
+        failed=z, refill_failed=z, stash_hits=z, stash_misses=z, bursts=z,
+        stash_depth_hist=torch.zeros((cfg.stash_size + 1,), dtype=I32,
+                                     device=dev),
+        queue_live=z, queue_capacity=z)
+
+
 def stash_depth_histogram(cfg: PagedKVConfig, stash: LaneStashState,
                           active: torch.Tensor) -> torch.Tensor:
     """``[stash_size + 1]`` int32 histogram of active lanes' stash depth."""

@@ -48,14 +48,17 @@ from ..serve.scheduler import Request, Scheduler, make_scheduler_config
 def synth_requests(cfg, n: int, rng: np.random.RandomState,
                    priority_every: int = 0) -> list[Request]:
     """Larson-style synthetic request mix (the JAX launcher's, draw for
-    draw): a vlm request also carries 4 patch rows of ``randn``.
-    ``priority_every=k`` marks every k-th request priority 1."""
+    draw): an audio request also carries ``encoder_seq_len`` frame rows
+    of ``randn``, a vlm request 4 patch rows.  ``priority_every=k`` marks
+    every k-th request priority 1."""
     reqs = []
     for rid in range(n):
         plen = int(rng.pareto(2.0) * 20) % 96 + 8
         reqs.append(Request(
             rid=rid,
             tokens=rng.randint(0, cfg.vocab_size, size=plen).astype(np.int32),
+            frames=(rng.randn(cfg.encoder_seq_len, cfg.d_model)
+                    .astype(np.float32) if cfg.family == "audio" else None),
             patches=(rng.randn(4, cfg.d_model).astype(np.float32)
                      if cfg.family == "vlm" else None),
             priority=1 if priority_every and rid and rid % priority_every == 0
@@ -319,6 +322,9 @@ def main(argv=None) -> None:
         ap.error("--record-trace needs --loadgen")
 
     cfg = smoke_config(args.arch)
+    if args.loadgen != "off" and cfg.family == "audio":
+        ap.error("--loadgen draws no frame embeddings for an audio request "
+                 "(nor does the JAX package's loadgen)")
     rng = np.random.RandomState(args.seed)
     kvcfg = make_paged_config(cfg, seq_len=256, lanes=args.lanes,
                               page_size=args.page_size, dtype=torch.float32,

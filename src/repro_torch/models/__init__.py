@@ -1,4 +1,4 @@
-"""Model API of the port: the dense LM, its decode step, sizing helpers.
+"""Model API of the port: the family LMs, their decode step, sizing helpers.
 
 The names resolve lazily (PEP 562): the models call the attention
 kernels, whose plain versions import :mod:`.attention`, so importing a

@@ -1,5 +1,5 @@
-"""Single-token decode over the paged KV cache (port of the dense and
-hybrid branches of :mod:`repro.models.decode`).
+"""Single-token decode over the paged KV cache (port of
+:mod:`repro.models.decode`, every family the port serves).
 
 Each attention layer reads its page-mapped KV through the block tables --
 the only data-path read of allocator-managed storage -- with its own
@@ -15,6 +15,16 @@ The hybrid family (zamba2) runs a Mamba2 step on every layer, carrying
 the lanes' :class:`RecurrentState`, and the shared attention block on the
 flagged layers only, each application reading and returning its own KV
 layer (:func:`~repro_torch.models.transformer.hybrid_kv_slots`).
+
+The ssm family (rwkv6) is attention-free: every layer runs the RWKV6
+time- and channel-mix steps on the lanes' state (``ssm`` is then the wkv
+state, ``tm_prev``/``cm_prev`` each mix's last input) and the step
+returns no K/V.  The audio family (whisper) adds the learned decoder
+position of each lane's token, reads its own K/V through the paged
+kernel as the dense family does, with no RoPE, and after every layer
+attends over the lane's encoder output (``enc_out``), projecting its
+cross K/V anew every step, as the JAX decode does; that attention is the
+flash kernel (one query, causal off) on the card.
 """
 from __future__ import annotations
 
@@ -26,31 +36,44 @@ from ..configs.base import ArchConfig
 from ..core.paged_kv import PagedKVState
 from ..kernels.paged_attention.ops import paged_decode_attention_op
 from . import mamba2 as m2
+from . import rwkv6 as rw
 from .attention import FULL_WINDOW
-from .layers import apply_rope, mlp_apply, out_project, qkv_project, rmsnorm
-from .transformer import (AttnBlock, hybrid_attn_flags, hybrid_kv_slots,
-                          layer_windows)
+from .layers import apply_norm, apply_rope, out_project, qkv_project
+from .transformer import (AttnBlock, cross_residual, hybrid_attn_flags,
+                          hybrid_kv_slots, layer_windows, mlp_residual)
 
 
 class RecurrentState(NamedTuple):
-    """The lanes' per-layer recurrent state (hybrid family)."""
+    """The lanes' per-layer recurrent state (hybrid and ssm families)."""
 
-    ssm: torch.Tensor      # [L, B, h, n, hd] f32
-    conv: torch.Tensor     # [L, B, K-1, conv_dim] model dtype
+    ssm: torch.Tensor      # hybrid [L, B, h, n, hd] | rwkv6 [L, B, H, hd, hd] f32
+    conv: Optional[torch.Tensor] = None     # hybrid [L, B, K-1, conv_dim]
+    tm_prev: Optional[torch.Tensor] = None  # rwkv6 [L, B, 1, d]
+    cm_prev: Optional[torch.Tensor] = None  # rwkv6 [L, B, 1, d]
 
 
 def init_recurrent_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
                          device: torch.device) -> Optional[RecurrentState]:
-    """Zero state for ``batch`` lanes; ``None`` for attention families."""
-    if cfg.family != "hybrid":
-        return None
-    spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
+    """Zero state for ``batch`` lanes (f32 ``ssm``, the rest in
+    ``dtype``); ``None`` for attention families."""
     L = cfg.num_layers
-    return RecurrentState(
-        ssm=torch.zeros((L, batch, spec.heads, spec.n_state, spec.head_dim),
-                        dtype=torch.float32, device=device),
-        conv=torch.zeros((L, batch, m2.CONV_K - 1, spec.conv_dim),
-                         dtype=dtype, device=device))
+    if cfg.family == "hybrid":
+        spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
+        return RecurrentState(
+            ssm=torch.zeros((L, batch, spec.heads, spec.n_state,
+                             spec.head_dim), dtype=torch.float32,
+                            device=device),
+            conv=torch.zeros((L, batch, m2.CONV_K - 1, spec.conv_dim),
+                             dtype=dtype, device=device))
+    if cfg.family == "ssm":
+        hd = cfg.resolved_head_dim
+        prev = torch.zeros((L, batch, 1, cfg.d_model), dtype=dtype,
+                           device=device)
+        return RecurrentState(
+            ssm=torch.zeros((L, batch, cfg.d_model // hd, hd, hd),
+                            dtype=torch.float32, device=device),
+            tm_prev=prev, cm_prev=prev.clone())
+    return None
 
 
 def _attn_layer_step(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
@@ -59,36 +82,60 @@ def _attn_layer_step(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     v)`` with the token's K/V ``[B, KV, hd]``."""
     hd = cfg.resolved_head_dim
     positions = paged.seq_lens
-    h = rmsnorm(lp.ln_attn, x)
+    h = apply_norm(cfg.norm, lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
                           cfg.num_kv_heads, hd, lp.bq, lp.bk, lp.bv)
-    q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
-    k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
+    if cfg.family != "audio":
+        q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
+        k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
     attn = paged_decode_attention_op(
         q, paged.k_pages[:, kv_layer], paged.v_pages[:, kv_layer],
         paged.block_tables, paged.seq_lens, window, k_self=k, v_self=v,
         active=paged.active)
     x = x + out_project(lp.wo, attn[:, None])[:, 0]
-    x = x + mlp_apply(lp.w_in, lp.w_out, rmsnorm(lp.ln_mlp, x), cfg.act)
-    return x, k, v
+    return mlp_residual(cfg, lp, x), k, v
+
+
+def _rwkv6_step(params, x: torch.Tensor, rec: RecurrentState):
+    wkvs, tms, cms = [], [], []
+    for li, layer in enumerate(params.layers):
+        y, wkv, tm = rw.rwkv6_time_mix_step(
+            layer.tm, params.spec, apply_norm("layernorm", layer.ln1, x),
+            rw.RWKV6DecodeState(wkv=rec.ssm[li], tm_prev=rec.tm_prev[li],
+                                cm_prev=rec.cm_prev[li]))
+        x = x + y
+        y, cm = rw.rwkv6_channel_mix_step(
+            layer.cm, apply_norm("layernorm", layer.ln2, x), rec.cm_prev[li])
+        x = x + y
+        wkvs.append(wkv)
+        tms.append(tm)
+        cms.append(cm)
+    return x, RecurrentState(ssm=torch.stack(wkvs), tm_prev=torch.stack(tms),
+                             cm_prev=torch.stack(cms))
 
 
 def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
                   tokens: torch.Tensor,             # [B] int32
-                  rec: Optional[RecurrentState] = None):
+                  rec: Optional[RecurrentState] = None,
+                  enc_out: Optional[torch.Tensor] = None):
     """Run the layer stack for one token per lane.
 
-    Returns ``(hidden [B, d], (new_k, new_v), new_rec)`` with K/V ``[B,
-    L_kv, KV, hd]``; ``new_rec`` is ``None`` for attention families.
+    Returns ``(hidden [B, d], (new_k, new_v) or None, new_rec)`` with K/V
+    ``[B, L_kv, KV, hd]`` (``None`` for the attention-free ssm family);
+    ``new_rec`` is ``None`` for attention families.  The audio family
+    reads ``enc_out [B, F, d]``.
     """
     x = params.embed[tokens.long()]
+    if cfg.family == "ssm":
+        x, new_rec = _rwkv6_step(params, x, rec)
+        return x, None, new_rec
     ks, vs = [], []
     if cfg.family == "hybrid":
         ssms, convs = [], []
         for li, (layer, flag, slot) in enumerate(zip(
                 params.layers, hybrid_attn_flags(cfg), hybrid_kv_slots(cfg))):
             y, st = m2.mamba2_decode_step(
-                layer.mamba, params.spec, rmsnorm(layer.ln, x),
+                layer.mamba, params.spec, apply_norm(cfg.norm, layer.ln, x),
                 m2.Mamba2DecodeState(conv=rec.conv[li], ssm=rec.ssm[li]))
             x = x + y
             ssms.append(st.ssm)
@@ -101,9 +148,14 @@ def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
         new_rec = RecurrentState(ssm=torch.stack(ssms),
                                  conv=torch.stack(convs))
     else:
+        if cfg.family == "audio":
+            x = x + params.dec_pos[paged.seq_lens.long()].to(x.dtype)
         for li, (lp, window) in enumerate(zip(params.layers,
                                               layer_windows(cfg))):
             x, k, v = _attn_layer_step(cfg, lp, x, paged, li, window)
+            if cfg.family == "audio":
+                x = cross_residual(cfg, params.cross_layers[li], x[:, None],
+                                   enc_out)[:, 0]
             ks.append(k)
             vs.append(v)
         new_rec = None

@@ -1,5 +1,8 @@
 """Shared model layers (port of :mod:`repro.models.layers`): norms, RoPE,
-the gated MLP, embedding and projections, as functions on tensors.
+the gated and the plain GELU MLP, embedding and projections, as functions
+on tensors.  A LayerNorm's scale and bias live in a :class:`LayerNorm`
+module; an RMSNorm's scale is one tensor (:func:`apply_norm` takes
+either).
 
 Weights keep the JAX package's layout (``x @ w`` with ``w [d_in, d_out]``)
 so parameters carry across unchanged.  Initializers draw from an explicit
@@ -8,9 +11,11 @@ so parameters carry across unchanged.  Initializers draw from an explicit
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
@@ -20,6 +25,49 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(p: "LayerNorm", x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance, as the JAX
+    ``layernorm``."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(dt)
+
+
+class LayerNorm(nn.Module):
+    """A LayerNorm's ``scale`` (ones) and ``bias`` ``[d]``.  The JAX
+    package initialises the bias to zero; with ``gen`` it is drawn from
+    ``N(0, 0.02)``, so that a run on the card exercises it."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device: torch.device,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        bias = torch.zeros((d,), dtype=torch.float32, device=device)
+        if gen is not None:
+            bias.normal_(0.0, 0.02, generator=gen)
+        self.scale = nn.Parameter(torch.ones((d,), dtype=dtype,
+                                             device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(bias.to(dtype), requires_grad=False)
+
+
+def init_norm(kind: str, d: int, dtype: torch.dtype, device: torch.device,
+              gen: Optional[torch.Generator] = None):
+    """An RMSNorm's scale (stored as ``scale - 1``: zeros) or a
+    :class:`LayerNorm`."""
+    if kind == "rmsnorm":
+        return nn.Parameter(torch.zeros((d,), dtype=dtype, device=device),
+                            requires_grad=False)
+    return LayerNorm(d, dtype, device, gen)
+
+
+def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -44,10 +92,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def mlp_apply(w_in: torch.Tensor, w_out: torch.Tensor, x: torch.Tensor,
-              act: str) -> torch.Tensor:
+              act: str, b_in: Optional[torch.Tensor] = None,
+              b_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gated MLP ``act(gate) * up`` with ``[gate | up] = x @ w_in``:
     ``swiglu`` takes SiLU, ``geglu`` the tanh form of GELU (the default of
-    ``jax.nn.gelu``; the exact GELU would be a silent mismatch)."""
+    ``jax.nn.gelu``; the exact GELU would be a silent mismatch).  ``gelu``
+    is the plain MLP with biases (whisper): ``gelu(x @ w_in + b_in) @
+    w_out + b_out``, GELU in its tanh form too."""
+    if act == "gelu":
+        h = x @ w_in
+        if b_in is not None:
+            h = h + b_in
+        y = F.gelu(h, approximate="tanh") @ w_out
+        return y if b_out is None else y + b_out
     gate, up = (x @ w_in).chunk(2, dim=-1)
     if act == "swiglu":
         g = F.silu(gate)

@@ -1,8 +1,9 @@
 """Public model API of the port (counterpart of
 :mod:`repro.models.model_zoo`).
 
-  init_params(cfg, seed, dtype, device)  -- the family's LM (DenseLM or
-                                            HybridLM) from a seeded generator
+  init_params(cfg, seed, dtype, device)  -- the family's LM (DenseLM,
+                                            HybridLM, RWKV6LM or WhisperLM)
+                                            from a seeded generator
   params_from_numpy(tree, cfg, device)   -- the same from the JAX package's
                                             parameter tree as numpy arrays
   make_paged_config(cfg, seq, lanes)     -- PagedKVConfig for a decode shape
@@ -19,7 +20,9 @@ from ..configs.base import ArchConfig
 from ..core.lane_stash import autotune_stash
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
+from .layers import LayerNorm
 from .mamba2 import F32_PARAMS
+from .rwkv6 import F32_PARAMS as RWKV6_F32_PARAMS
 from .transformer import init_lm_params, lm_class
 
 DEFAULT_PAGE_SIZE = 64
@@ -31,8 +34,17 @@ _BLOCK_KEYS = {          # AttnBlock attribute -> path in the JAX layer tree
 }
 _BIAS_KEYS = {"bq": ("attn", "bq"), "bk": ("attn", "bk"),   # qkv_bias only
               "bv": ("attn", "bv")}
+_MLP_BIAS_KEYS = {"b_in": ("mlp", "b_in"),                  # gelu MLP only
+                  "b_out": ("mlp", "b_out")}
 _MAMBA_KEYS = ("in_proj", "out_proj", "conv_w", "conv_b", "A_log", "D",
                "dt_bias", "norm_scale")
+_CROSS_KEYS = {"ln": ("ln",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
+               "wv": ("attn", "wv"), "wo": ("attn", "wo")}
+_RWKV6_KEYS = {          # RWKV6Layer sub-module -> its JAX leaves
+    "tm": ("mix", "wr", "wk", "wv", "wg", "wo", "decay_lora_a",
+           "decay_lora_b", "decay_base", "bonus_u", "ln_out"),
+    "cm": ("mix", "wk", "wv", "wr"),
+}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -54,13 +66,16 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
     """The port's parameters from the JAX package's tree, already converted
     to numpy by the caller (``jax.tree.map(np.asarray, params)``).
 
-    ``tree["layers"]`` is either the JAX package's stacked layout (every
-    leaf ``[num_layers, ...]``) or a list of per-layer trees; it is
-    unstacked into the module's layers.  With ``cfg.qkv_bias`` each block
-    also carries ``attn.bq/bk/bv``.  The hybrid tree's layers are
-    ``{ln, mamba: {in_proj, ...}}`` beside one ``shared_attn`` block.
-    ``dtype`` defaults to the arrays' own; the Mamba2 ``A_log``, ``D`` and
-    ``dt_bias`` stay f32, as in the JAX tree.
+    ``tree["layers"]`` (and whisper's ``enc_layers``/``cross_layers``) is
+    either the JAX package's stacked layout (every leaf ``[num_layers,
+    ...]``) or a list of per-layer trees; it is unstacked into the
+    module's layers.  With ``cfg.qkv_bias`` each block also carries
+    ``attn.bq/bk/bv``, with the plain GELU MLP ``mlp.b_in/b_out``; a
+    LayerNorm is ``{scale, bias}``.  The hybrid tree's layers are ``{ln,
+    mamba: {in_proj, ...}}`` beside one ``shared_attn`` block, rwkv6's
+    ``{ln1, ln2, tm: {...}, cm: {...}}``.  ``dtype`` defaults to the
+    arrays' own; the Mamba2 ``A_log``, ``D`` and ``dt_bias`` and RWKV6's
+    ``decay_base`` and ``bonus_u`` stay f32, as in the JAX tree.
     """
     dev = resolve_device(device)
     dt = dtype or torch.from_numpy(np.array(tree["embed"][:1])).dtype
@@ -68,37 +83,69 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
     def tensor(a, to=None) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(device=dev, dtype=to or dt)
 
-    model = lm_class(cfg)(cfg, dt, dev)
-    model.embed.data = tensor(tree["embed"])
-    model.final_norm.data = tensor(tree["final_norm"])
-    if not cfg.tie_embeddings:
-        model.unembed.data = tensor(tree["unembed"])
-    layers = tree["layers"]
-    stacked = not isinstance(layers, (list, tuple))
-
     def leaf(sub, path, i=None):
         for key in path:
             sub = sub[key]
         return sub if i is None else sub[i]
 
-    keys = {**_BLOCK_KEYS, **_BIAS_KEYS} if cfg.qkv_bias else _BLOCK_KEYS
-
-    def load_block(block, sub, i=None):
-        for name, path in keys.items():
-            getattr(block, name).data = tensor(leaf(sub, path, i))
-
-    for i, layer in enumerate(model.layers):
-        sub, idx = (layers, i) if stacked else (layers[i], None)
-        if cfg.family == "hybrid":
-            layer.ln.data = tensor(leaf(sub, ("ln",), idx))
-            for name in _MAMBA_KEYS:
-                to = torch.float32 if name in F32_PARAMS else None
-                getattr(layer.mamba, name).data = tensor(
-                    leaf(sub, ("mamba", name), idx), to)
+    def load(module, name, sub, path, i=None, to=None):
+        """One parameter, or both of a LayerNorm's."""
+        target = getattr(module, name)
+        if isinstance(target, LayerNorm):
+            for part in ("scale", "bias"):
+                getattr(target, part).data = tensor(
+                    leaf(sub, path + (part,), i))
         else:
-            load_block(layer, sub, idx)
+            target.data = tensor(leaf(sub, path, i), to)
+
+    def layer_trees(layers):
+        stacked = not isinstance(layers, (list, tuple))
+        return lambda i: (layers, i) if stacked else (layers[i], None)
+
+    model = lm_class(cfg)(cfg, dt, dev)
+    load(model, "embed", tree, ("embed",))
+    load(model, "final_norm", tree, ("final_norm",))
+    if not cfg.tie_embeddings:
+        load(model, "unembed", tree, ("unembed",))
+
+    keys = dict(_BLOCK_KEYS)
+    if cfg.qkv_bias:
+        keys.update(_BIAS_KEYS)
+    if cfg.act == "gelu":
+        keys.update(_MLP_BIAS_KEYS)
+
+    def load_blocks(blocks, layers, block_keys=keys):
+        at = layer_trees(layers)
+        for i, block in enumerate(blocks):
+            sub, idx = at(i)
+            for name, path in block_keys.items():
+                load(block, name, sub, path, idx)
+
+    at = layer_trees(tree["layers"])
     if cfg.family == "hybrid":
-        load_block(model.shared_attn, tree["shared_attn"])
+        for i, layer in enumerate(model.layers):
+            sub, idx = at(i)
+            load(layer, "ln", sub, ("ln",), idx)
+            for name in _MAMBA_KEYS:
+                load(layer.mamba, name, sub, ("mamba", name), idx,
+                     torch.float32 if name in F32_PARAMS else None)
+        load_blocks([model.shared_attn], [tree["shared_attn"]])
+    elif cfg.family == "ssm":
+        for i, layer in enumerate(model.layers):
+            sub, idx = at(i)
+            for name in ("ln1", "ln2"):
+                load(layer, name, sub, (name,), idx)
+            for part, names in _RWKV6_KEYS.items():
+                for name in names:
+                    load(getattr(layer, part), name, sub, (part, name), idx,
+                         torch.float32 if name in RWKV6_F32_PARAMS else None)
+    else:
+        load_blocks(model.layers, tree["layers"])
+    if cfg.family == "audio":
+        load_blocks(model.enc_layers, tree["enc_layers"])
+        load_blocks(model.cross_layers, tree["cross_layers"], _CROSS_KEYS)
+        for name in ("enc_final_norm", "enc_pos", "dec_pos"):
+            load(model, name, tree, (name,))
     return model
 
 
@@ -124,7 +171,8 @@ def make_paged_config(
     rounded up to a multiple of 512 pages.  The hybrid family holds one KV
     layer per shared-block application (``num_layers // attn_every``) and
     one recurrent-state slot per lane (``state_slots``, a tenant between
-    the KV pages and the scratch).
+    the KV pages and the scratch); the ssm family has the state slots too
+    and one KV layer that no step writes, as in the JAX package.
     """
     if cfg.attn_pattern not in ("full", "local_global"):
         raise NotImplementedError(
@@ -162,7 +210,7 @@ def make_paged_config(
         max_lanes=lanes,
         max_pages_per_lane=live_pages,
         dtype=dtype,
-        state_slots=lanes if cfg.family == "hybrid" else 0,
+        state_slots=lanes if cfg.family in ("ssm", "hybrid") else 0,
         stash_size=stash_size,
         stash_watermark=stash_watermark,
         stash_refill=stash_refill,

@@ -1,13 +1,18 @@
-"""LM backbones as ``nn.Module``s (port of the dense and hybrid families of
-:mod:`repro.models.transformer`).
+"""LM backbones as ``nn.Module``s (port of the dense, vlm, hybrid, ssm and
+audio families of :mod:`repro.models.transformer`).
 
 Parameters keep the JAX tree's names and layouts, one module per layer
 (the JAX package stacks them for ``scan``):
 
-    embed [V, d]   final_norm [d]   unembed [d, V]
-    AttnBlock: ln_attn [d], wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d],
+    embed [V, d]   final_norm   unembed [d, V]
+    AttnBlock: ln_attn, wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d],
                (with ``qkv_bias``) bq [H*hd], bk/bv [KV*hd],
-               ln_mlp [d], w_in [d, 2*ff], w_out [ff, d]
+               ln_mlp, w_in [d, 2*ff], w_out [ff, d]
+               (plain GELU MLP: w_in [d, ff], b_in [ff], w_out, b_out [d])
+
+A norm is an RMSNorm's scale ``[d]`` or a
+:class:`~repro_torch.models.layers.LayerNorm` (``scale``, ``bias``), as
+``cfg.norm`` says.
 
 :class:`DenseLM` has one :class:`AttnBlock` per layer; it also serves the
 vlm family (phi-3-vision), whose forward takes the patch embeddings as a
@@ -16,7 +21,17 @@ prefix of rows ahead of the tokens' (``prefix_embeds``).  :class:`HybridLM`
 :class:`~repro_torch.models.mamba2.Mamba2`) per layer and ONE
 ``shared_attn`` block, applied after every ``attn_every``-th layer with
 the same weights each time; each application is one KV layer of the paged
-cache (:func:`hybrid_kv_slots`).
+cache (:func:`hybrid_kv_slots`).  :class:`RWKV6LM` (rwkv6) has one
+:class:`RWKV6Layer` (``ln1``, a time mix, ``ln2``, a channel mix) per
+layer and no attention.  :class:`WhisperLM` (whisper) adds to the decoder
+layers an encoder of :class:`AttnBlock`s over the request's frame
+embeddings (bidirectional, learned positions ``enc_pos``), its
+``enc_final_norm``, one :class:`CrossBlock` after every decoder layer, and
+learned decoder positions ``dec_pos``; the audio family has no RoPE.
+
+Attention goes through the flash kernel for CUDA tensors and through
+``mea_attention`` -- the JAX package's own arithmetic, which keeps the CPU
+path within f32 rounding of it -- for CPU tensors (:func:`attention`).
 
 Serving holds the parameters without gradients.
 """
@@ -30,13 +45,34 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention_op
 from . import mamba2 as m2
+from . import rwkv6 as rw
 from .attention import FULL_WINDOW, mea_attention
-from .layers import (apply_rope, bias_init, dense_init, init_embedding,
-                     mlp_apply, out_project, qkv_project, rmsnorm)
+from .layers import (LayerNorm, apply_norm, apply_rope, bias_init,
+                     dense_init, init_embedding, init_norm, mlp_apply,
+                     out_project, qkv_project)
+
+#: rows of whisper's learned decoder positions, as in the JAX tree (sized
+#: for a 32k decode; the deployed decoder context is 448)
+DEC_POS_ROWS = 32768 + 8
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """``[B, Tq, H, hd]`` attention at one call site: the flash kernel for
+    CUDA tensors, ``mea_attention`` for CPU tensors.  ``window=None`` is
+    no window."""
+    if q.device.type == "cuda":
+        return flash_attention_op(
+            q, k, v, causal=causal,
+            window=FULL_WINDOW if window is None else window,
+            q_offset=q_offset)
+    return mea_attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
 
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
@@ -56,8 +92,10 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + gated MLP block.  Without ``cfg.qkv_bias`` the
-    biases ``bq``/``bk``/``bv`` are ``None``."""
+    """Pre-norm attention + MLP block.  Without ``cfg.qkv_bias`` the
+    biases ``bq``/``bk``/``bv`` are ``None``; a gated MLP has no
+    ``b_in``/``b_out``.  The JAX init has zero MLP biases; with ``gen``
+    they are drawn like the QKV biases, so a run on the card uses them."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator]):
@@ -70,7 +108,7 @@ class AttnBlock(nn.Module):
                 return _param(torch.empty(shape, dtype=dtype, device=device))
             return _param(dense_init(shape, dtype, device, gen))
 
-        self.ln_attn = _param(torch.zeros((d,), dtype=dtype, device=device))
+        self.ln_attn = init_norm(cfg.norm, d, dtype, device, gen)
         self.wq = w((d, H * hd))
         self.wk = w((d, KV * hd))
         self.wv = w((d, KV * hd))
@@ -79,9 +117,21 @@ class AttnBlock(nn.Module):
                 torch.empty((n,), dtype=dtype, device=device) if gen is None
                 else bias_init(n, d, dtype, device, gen)))
         self.wo = w((H * hd, d))
-        self.ln_mlp = _param(torch.zeros((d,), dtype=dtype, device=device))
-        self.w_in = w((d, 2 * ff))
+        self.ln_mlp = init_norm(cfg.norm, d, dtype, device, gen)
+        gelu = cfg.act == "gelu"
+        self.w_in = w((d, ff if gelu else 2 * ff))
         self.w_out = w((ff, d))
+        for name, n, fan_in in (("b_in", ff, d), ("b_out", d, ff)):
+            self.register_parameter(name, None if not gelu else _param(
+                torch.empty((n,), dtype=dtype, device=device) if gen is None
+                else bias_init(n, fan_in, dtype, device, gen)))
+
+
+def mlp_residual(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """``x + mlp(norm(x))`` of one block."""
+    h = apply_norm(cfg.norm, lp.ln_mlp, x)
+    return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act, lp.b_in, lp.b_out)
 
 
 class _LM(nn.Module):
@@ -96,7 +146,7 @@ class _LM(nn.Module):
             self.embed = _param(torch.empty((V, d), dtype=dtype, device=device))
         else:
             self.embed = _param(init_embedding(V, d, dtype, device, gen))
-        self.final_norm = _param(torch.zeros((d,), dtype=dtype, device=device))
+        self.final_norm = init_norm(cfg.norm, d, dtype, device, gen)
         if not cfg.tie_embeddings:
             self.unembed = _param(
                 torch.empty((d, V), dtype=dtype, device=device) if gen is None
@@ -104,22 +154,20 @@ class _LM(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection."""
-        x = rmsnorm(self.final_norm, x)
+        x = apply_norm(self.cfg.norm, self.final_norm, x)
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
         return x @ self.unembed
 
 
-def _check_attention(cfg: ArchConfig, families: tuple, patterns: tuple
-                     ) -> None:
-    if cfg.family not in families or cfg.attn_pattern not in patterns \
-            or cfg.act not in ("swiglu", "geglu") or cfg.norm != "rmsnorm":
+def _check_family(cfg: ArchConfig, families: tuple,
+                  patterns: tuple = ("full",)) -> None:
+    if cfg.family not in families or cfg.attn_pattern not in patterns:
         raise NotImplementedError(
-            f"repro_torch serves the dense and vlm RMSNorm families with "
-            f"full or local:global attention and the hybrid family with full "
-            f"attention, each with a gated MLP, so far; sliding-window "
-            f"attention, MoE, the ssm and audio families, LayerNorm and "
-            f"plain GELU wait for later slices, so {cfg.name!r} does too "
+            f"repro_torch serves the dense and vlm families with full or "
+            f"local:global attention and the hybrid, ssm and audio families "
+            f"with full attention, so far; sliding-window attention and MoE "
+            f"wait for a multi-card path, so {cfg.name!r} does too "
             f"(ROADMAP.md, Queue 1)")
 
 
@@ -130,7 +178,7 @@ class DenseLM(_LM):
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
-        _check_attention(cfg, ("dense", "vlm"), ("full", "local_global"))
+        _check_family(cfg, ("dense", "vlm"), ("full", "local_global"))
         super().__init__(cfg, dtype, device, gen)
         self.layers = nn.ModuleList(
             AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
@@ -196,8 +244,7 @@ class HybridLayer(nn.Module):
                  dtype: torch.dtype, device: torch.device,
                  gen: Optional[torch.Generator]):
         super().__init__()
-        self.ln = _param(torch.zeros((cfg.d_model,), dtype=dtype,
-                                     device=device))
+        self.ln = init_norm(cfg.norm, cfg.d_model, dtype, device, gen)
         self.mamba = m2.Mamba2(spec, dtype, device, gen)
 
 
@@ -207,7 +254,7 @@ class HybridLM(_LM):
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
-        _check_attention(cfg, ("hybrid",), ("full",))
+        _check_family(cfg, ("hybrid",))
         super().__init__(cfg, dtype, device, gen)
         self.spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
         self.layers = nn.ModuleList(
@@ -241,7 +288,7 @@ class HybridLM(_LM):
         ks, vs, ssms, convs = [], [], [], []
         for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
             y, ssm, conv = m2.mamba2_forward_with_state(
-                layer.mamba, self.spec, rmsnorm(layer.ln, x))
+                layer.mamba, self.spec, apply_norm(self.cfg.norm, layer.ln, x))
             x = x + y
             ssms.append(ssm)
             convs.append(conv)
@@ -255,46 +302,211 @@ class HybridLM(_LM):
 
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
-                    window: int, q_offset: int = 0, prefix_kv=None):
+                    window: int, q_offset: int = 0, prefix_kv=None,
+                    causal: bool = True):
     """One block over a full sequence; returns ``(x, (k, v))``.
 
     The sequence sits at absolute positions ``[q_offset, q_offset + T)``
-    (RoPE is applied there); ``prefix_kv`` = (pk, pv), each ``[B, P, KV,
-    hd]``, holds the cached keys of positions ``[0, P)`` with ``P ==
-    q_offset``, which the queries attend over before their own.  The
-    returned ``(k, v)`` cover the sequence alone.
-
-    Causal attention goes through the flash kernel for CUDA tensors and
-    through ``mea_attention`` -- the JAX prefill's own arithmetic, which
-    keeps the CPU path within f32 rounding of the JAX package -- for CPU
-    tensors."""
+    (RoPE is applied there, but for the audio family, whose positions are
+    learned); ``prefix_kv`` = (pk, pv), each ``[B, P, KV, hd]``, holds the
+    cached keys of positions ``[0, P)`` with ``P == q_offset``, which the
+    queries attend over before their own.  The returned ``(k, v)`` cover
+    the sequence alone.  ``causal=False`` is whisper's bidirectional
+    encoder block."""
     hd = cfg.resolved_head_dim
-    h = rmsnorm(lp.ln_attn, x)
+    h = apply_norm(cfg.norm, lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
                           cfg.num_kv_heads, hd, lp.bq, lp.bk, lp.bv)
-    positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
-                                        device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.family != "audio":
+        positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
+                                            device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if prefix_kv is not None:
         k_all = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
     else:
         k_all, v_all = k, v
-    if x.device.type == "cuda":
-        attn = flash_attention_op(q, k_all, v_all, causal=True, window=window,
-                                  q_offset=q_offset)
-    else:
-        attn = mea_attention(q, k_all, v_all, causal=True, window=window,
-                             q_offset=q_offset)
+    attn = attention(q, k_all, v_all, causal=causal,
+                     window=window if causal else None, q_offset=q_offset)
     x = x + out_project(lp.wo, attn)
-    h = rmsnorm(lp.ln_mlp, x)
-    return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act), (k, v)
+    return mlp_residual(cfg, lp, x), (k, v)
+
+
+class RWKV6Layer(nn.Module):
+    """``ln1``, the time mix ``tm``, ``ln2`` and the channel mix ``cm``
+    (the JAX tree's ``init_rwkv_block``)."""
+
+    def __init__(self, cfg: ArchConfig, spec: rw.RWKV6Spec,
+                 dtype: torch.dtype, device: torch.device,
+                 gen: Optional[torch.Generator]):
+        super().__init__()
+        self.ln1 = LayerNorm(cfg.d_model, dtype, device, gen)
+        self.ln2 = LayerNorm(cfg.d_model, dtype, device, gen)
+        self.tm = rw.TimeMix(spec, dtype, device, gen)
+        self.cm = rw.ChannelMix(spec, dtype, device, gen)
+
+
+class RWKV6LM(_LM):
+    """rwkv6: stacked RWKV6 layers, attention-free: no K/V, no paged
+    cache, a recurrent state per lane."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, gen: Optional[torch.Generator] = None):
+        _check_family(cfg, ("ssm",))
+        super().__init__(cfg, dtype, device, gen)
+        self.spec = rw.RWKV6Spec(cfg.d_model, cfg.d_ff, cfg.resolved_head_dim)
+        self.layers = nn.ModuleList(
+            RWKV6Layer(cfg, self.spec, dtype, device, gen)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, tokens: torch.Tensor, return_kv: bool = False,
+                prefix_kv=None, pos_offset: int = 0):
+        """Full-sequence logits ``[B, S, V]``.  The family has no K/V and
+        no prefix cache: ``return_kv``, ``prefix_kv`` and ``pos_offset``
+        raise."""
+        if return_kv or prefix_kv is not None or pos_offset:
+            raise ValueError("rwkv6 has no K/V: no return_kv and no "
+                             "prefix_kv/pos_offset prefill-skip "
+                             "(family='ssm')")
+        return self.logits(self._run(tokens)[0])
+
+    def prefill(self, tokens: torch.Tensor):
+        """The serving prefill's outputs, without the vocab projection: the
+        per-layer ``(wkv [L, B, H, hd, hd] f32, tm_prev [L, B, 1, d],
+        cm_prev [L, B, 1, d])`` a decode continues from (each mix's last
+        normalised input)."""
+        return self._run(tokens)[1]
+
+    def _run(self, tokens: torch.Tensor):
+        x = self.embed[tokens.long()]
+        wkvs, tms, cms = [], [], []
+        for layer in self.layers:
+            tm_in = apply_norm("layernorm", layer.ln1, x)
+            y, wkv = rw.rwkv6_time_mix(layer.tm, self.spec, tm_in)
+            x = x + y
+            cm_in = apply_norm("layernorm", layer.ln2, x)
+            x = x + rw.rwkv6_channel_mix(layer.cm, cm_in)
+            wkvs.append(wkv)
+            tms.append(tm_in[:, -1:])
+            cms.append(cm_in[:, -1:])
+        return x, (torch.stack(wkvs), torch.stack(tms), torch.stack(cms))
+
+
+class CrossBlock(nn.Module):
+    """whisper's cross-attention after a decoder layer: ``ln``, ``wq [d,
+    H*hd]``, ``wk``/``wv [d, KV*hd]`` (projecting the encoder output) and
+    ``wo``; no bias."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, gen: Optional[torch.Generator]):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+
+        def w(shape):
+            if gen is None:
+                return _param(torch.empty(shape, dtype=dtype, device=device))
+            return _param(dense_init(shape, dtype, device, gen))
+        self.ln = init_norm(cfg.norm, d, dtype, device, gen)
+        self.wq = w((d, H * hd))
+        self.wk = w((d, KV * hd))
+        self.wv = w((d, KV * hd))
+        self.wo = w((H * hd, d))
+
+
+def cross_kv(cfg: ArchConfig, cp: CrossBlock, enc_out: torch.Tensor):
+    """The encoder output's cross K/V, each ``[B, F, KV, hd]``."""
+    hd = cfg.resolved_head_dim
+    return ((enc_out @ cp.wk).reshape(*enc_out.shape[:-1], cfg.num_kv_heads,
+                                      hd),
+            (enc_out @ cp.wv).reshape(*enc_out.shape[:-1], cfg.num_kv_heads,
+                                      hd))
+
+
+def cross_residual(cfg: ArchConfig, cp: CrossBlock, x: torch.Tensor,
+                   enc_out: torch.Tensor) -> torch.Tensor:
+    """``x [B, T, d]`` plus its non-causal attention over ``enc_out [B,
+    F, d]``."""
+    h = apply_norm(cfg.norm, cp.ln, x)
+    q = (h @ cp.wq).reshape(*h.shape[:-1], cfg.num_heads,
+                            cfg.resolved_head_dim)
+    k, v = cross_kv(cfg, cp, enc_out)
+    return x + out_project(cp.wo, attention(q, k, v, causal=False))
+
+
+class WhisperLM(_LM):
+    """whisper: a bidirectional encoder over the request's frame
+    embeddings (the conv frontend is a stub, as in the JAX package), a
+    decoder of :class:`AttnBlock`s each followed by a :class:`CrossBlock`
+    over the encoder's output, learned positions on both sides."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device, gen: Optional[torch.Generator] = None):
+        _check_family(cfg, ("audio",))
+        super().__init__(cfg, dtype, device, gen)
+        d = cfg.d_model
+        self.layers = nn.ModuleList(
+            AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
+        self.enc_layers = nn.ModuleList(
+            AttnBlock(cfg, dtype, device, gen)
+            for _ in range(cfg.encoder_layers))
+        self.enc_final_norm = init_norm(cfg.norm, d, dtype, device, gen)
+        self.cross_layers = nn.ModuleList(
+            CrossBlock(cfg, dtype, device, gen)
+            for _ in range(cfg.num_layers))
+        # positions N(0, 0.02) in f32 (the JAX init draws enc_pos so and
+        # zeros dec_pos; drawn here, a run on the card uses them)
+        self.enc_pos, self.dec_pos = (_param(
+            torch.empty((n, d), dtype=torch.float32, device=device).normal_(
+                0.0, 0.02, generator=gen).to(dtype) if gen is not None
+            else torch.empty((n, d), dtype=dtype, device=device))
+            for n in (cfg.encoder_seq_len, DEC_POS_ROWS))
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """``frames [B, F, d]`` (the stub frontend's output) -> the encoder
+        output ``[B, F, d]``."""
+        x = frames + self.enc_pos[:frames.shape[1]].to(frames.dtype)
+        for lp in self.enc_layers:
+            x, _ = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW, causal=False)
+        return apply_norm(self.cfg.norm, self.enc_final_norm, x)
+
+    def forward(self, tokens: torch.Tensor, return_kv: bool = False,
+                prefix_kv=None, pos_offset: int = 0, encoder_frames=None):
+        """Full-sequence logits ``[B, S, V]`` of ``tokens`` over
+        ``encoder_frames [B, F, d]``; with ``return_kv`` also the decoder's
+        per-layer ``(k, v)``, each ``[L, B, S, KV, hd]``.  No prefix cache:
+        ``prefix_kv`` and ``pos_offset`` raise, as in the JAX package."""
+        if prefix_kv is not None or pos_offset:
+            raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
+                             "plain attention families without vlm/encoder "
+                             "prefixes (family='audio')")
+        logits, kv = self._decode(tokens, self.encode(encoder_frames))
+        return (logits, kv) if return_kv else logits
+
+    def prefill(self, tokens: torch.Tensor, frames: torch.Tensor):
+        """The serving prefill: ``(logits, (k, v), enc_out)``, the encoder
+        run once (the JAX prefill runs it twice: ROADMAP.md, Queue 3)."""
+        enc_out = self.encode(frames)
+        logits, kv = self._decode(tokens, enc_out)
+        return logits, kv, enc_out
+
+    def _decode(self, tokens: torch.Tensor, enc_out: torch.Tensor):
+        x = self.embed[tokens.long()]
+        x = x + self.dec_pos[:x.shape[1]].to(x.dtype)
+        ks, vs = [], []
+        for lp, cp in zip(self.layers, self.cross_layers):
+            x, (k, v) = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW)
+            x = cross_residual(self.cfg, cp, x, enc_out)
+            ks.append(k)
+            vs.append(v)
+        return self.logits(x), (torch.stack(ks), torch.stack(vs))
 
 
 def lm_class(cfg: ArchConfig) -> type:
     """The module class of ``cfg``'s family."""
-    return HybridLM if cfg.family == "hybrid" else DenseLM
+    return {"hybrid": HybridLM, "ssm": RWKV6LM,
+            "audio": WhisperLM}.get(cfg.family, DenseLM)
 
 
 def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
@@ -305,10 +517,14 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def forward(params: _LM, tokens: torch.Tensor, return_kv: bool = False,
-            prefix_kv=None, pos_offset: int = 0, prefix_embeds=None):
+            prefix_kv=None, pos_offset: int = 0, prefix_embeds=None,
+            encoder_frames=None):
     """Full-sequence logits (and per-layer K/V with ``return_kv``); see
     :meth:`DenseLM.forward` for the cached prefix and the vlm patch
-    prefix (``prefix_embeds``, which the hybrid family does not take)."""
+    prefix (``prefix_embeds``, which only the dense and vlm families
+    take) and :meth:`WhisperLM.forward` for ``encoder_frames``."""
     extra = {} if prefix_embeds is None else {"prefix_embeds": prefix_embeds}
+    if encoder_frames is not None:
+        extra["encoder_frames"] = encoder_frames
     return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
                   pos_offset=pos_offset, **extra)

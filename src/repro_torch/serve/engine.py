@@ -1,5 +1,5 @@
 """Serving engine: scheduler-driven continuous batching on the paged KV
-(port of :mod:`repro.serve.engine`, dense, vlm and hybrid families).
+(port of :mod:`repro.serve.engine`, every family the port serves).
 
 Admission is batched: one prefill per (prompt bucket, cached prefix)
 group, then ONE support-core burst (``paged_kv.admit_prefill_many``) for
@@ -38,6 +38,19 @@ decode step folds it a second time and writes its K/V at position
 A recurrent family never rides the prefix cache (:meth:`cache_probe` is
 0).
 
+The ssm family (rwkv6) is recurrent in the same way and has no K/V at
+all: its admission prefills and installs the lanes' states, sets their
+``seq_lens`` and activates them, and issues no burst (its ``state_slots``
+tenant is never granted, as in the JAX engine: ROADMAP.md, Queue 3); its
+decode steps commit nothing; its release is the usual FREE_ALL burst.
+
+The audio family (whisper) admits a request's frame embeddings (``frames
+[F, d]``, the stub frontend's output): the prefill runs the encoder over
+them once and the engine keeps the output in ``ServeState.enc_out`` at the
+lane, which every decode step's cross-attention reads.  Such a request
+never rides the prefix cache, and its lane is never demoted: its K/V from
+the second layer on depends on the audio.
+
 The vlm family (phi-3-vision) admits a request's patch embeddings ahead of
 its prompt: they take positions ``[0, P)`` of the lane's K/V, so the lane
 holds ``P + len(prompt)`` tokens after admission, its first decode token
@@ -62,7 +75,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.decode import RecurrentState, init_recurrent_state
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
-from .serve_step import (ServeState, make_decode_step, make_family_prefill)
+from .serve_step import (ServeState, init_enc_out, make_decode_step,
+                         make_family_prefill)
 
 I32 = torch.int32
 
@@ -75,6 +89,7 @@ class EngineStats:
     preemptions: int = 0           # running lanes evicted by the scheduler
     alloc_failures: int = 0        # failed malloc packets
     hmq_admit_bursts: int = 0      # support-core steps issued for admission
+    decode_commits: int = 0        # decode steps that committed a burst
     prefill_passes: int = 0        # prefill forward passes (one per bucket)
     hmq_release_bursts: int = 0    # release/eviction bursts issued
     # --- stash front-end telemetry ---
@@ -127,10 +142,10 @@ class EngineStats:
     @property
     def commits(self) -> int:
         """Support-core commits this engine made (each one kernel launch
-        on the card; a decode step commits even when its gate skips).  A
-        multi-engine shard's deferred traffic rides the window's merged
-        commit, which the deployment counts."""
-        return (self.hmq_admit_bursts + self.decode_steps
+        on the card; a decode step commits even when its gate skips, an
+        attention-free one never).  A multi-engine shard's deferred traffic
+        rides the window's merged commit, which the deployment counts."""
+        return (self.hmq_admit_bursts + self.decode_commits
                 + self.hmq_release_bursts)
 
     @property
@@ -156,6 +171,7 @@ class AdmissionItem(NamedTuple):
 
     lane: int
     tokens: np.ndarray                    # [T] int32
+    frames: Optional[np.ndarray] = None   # [F, d] (audio)
     patches: Optional[np.ndarray] = None  # [P, d] (vlm)
     cached_len: int = 0                   # prefix tokens served by the cache
 
@@ -193,7 +209,7 @@ def run_admission(eng: "ServingEngine", sched, preemption: bool = False,
                                         alias=alias)
     if not plan.size:
         return False
-    items = [AdmissionItem(lane, r.tokens, r.patches, r.cached_len)
+    items = [AdmissionItem(lane, r.tokens, r.frames, r.patches, r.cached_len)
              for b in plan.batches for lane, r in b.items]
     failed = eng.admit_many(items)
     sync()
@@ -268,16 +284,19 @@ class ServingEngine:
         # lane -> (pinned token prefix, shared block ids) for lanes whose
         # block tables reference cache-owned pages
         self._aliased: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-        # lanes whose K/V opens with a vlm patch prefix: never demoted
-        self._patched: set[int] = set()
+        # lanes whose K/V depends on more than their tokens (a vlm patch
+        # prefix, whisper's audio): never demoted
+        self._no_demote: set[int] = set()
         self.admitted_tokens: dict[int, int] = {}
-        self.recurrent = cfg.family == "hybrid"
+        self.recurrent = cfg.family in ("ssm", "hybrid")
         self.state = ServeState(
             paged=pkv.init_paged_kv(kvcfg, self.tenants, alloc=alloc_state),
             tokens=torch.zeros((kvcfg.max_lanes,), dtype=I32,
                                device=self.device),
             rec=init_recurrent_state(cfg, kvcfg.max_lanes, params.embed.dtype,
-                                     self.device))
+                                     self.device),
+            enc_out=init_enc_out(cfg, kvcfg.max_lanes, params.embed.dtype,
+                                 self.device))
         self._decode = make_decode_step(cfg, kvcfg, self.tenants,
                                         defer_refill=defer_refill)
         self._prefill = make_family_prefill(cfg)
@@ -367,9 +386,11 @@ class ServingEngine:
     def cache_probe(self, req) -> int:
         """Plan-time peek: the longest cached prefix (tokens) of the
         request's prompt, with no side effects; 0 for a recurrent family,
-        whose state a cached prefix cannot restore, and for a request with
-        patches, whose K/V opens with the patch rows."""
-        if self.cache is None or self.recurrent or req.patches is not None:
+        whose state a cached prefix cannot restore, for a request with
+        patches, whose K/V opens with the patch rows, and for one with
+        frames, whose K/V depends on them."""
+        if self.cache is None or self.recurrent or req.patches is not None \
+                or req.frames is not None:
             return 0
         n, _ = self.cache.probe(np.asarray(req.tokens, np.int32))
         return n
@@ -396,16 +417,17 @@ class ServingEngine:
         release): kept pages are retagged to ``CACHE_OWNER`` so the lanes'
         FREE_ALLs leave them resident, duplicates stay lane-owned for that
         sweep, and the policy's victims are returned for the caller to
-        ride as single frees.  A lane admitted behind patches is not
-        demoted: its pages hold patch rows, not the K/V of the tokens the
-        cache would key them by.  (The JAX engine demotes it; a text-only
-        request opening with the same tokens would then read patch K/V.)"""
+        ride as single frees.  A lane admitted behind patches or with
+        frames is not demoted: its pages hold patch rows, or K/V that
+        depends on the audio, not the K/V of the tokens alone that the
+        cache would key them by.  (The JAX engine demotes both; a text-only
+        request opening with the same tokens could then read them.)"""
         ps = self.kvcfg.page_size
         tbl = self.state.paged.block_tables.cpu().numpy()
         retag: list[int] = []
         evicted: list[int] = []
         for lane, toks in kv_tokens.items():
-            if lane in self._patched:
+            if lane in self._no_demote:
                 continue
             toks = np.asarray(toks, np.int32)
             n = len(toks) // ps
@@ -440,7 +462,10 @@ class ServingEngine:
         lane's own pages, alias mode splices the cached pages.  An item
         with ``patches [P, d]`` (vlm) prefills them ahead of its tokens:
         items group by ``(bucket, P, cached_len)`` and the lane's K/V
-        holds ``P + len(tokens)`` rows."""
+        holds ``P + len(tokens)`` rows.  An item with ``frames [F, d]``
+        (audio) prefills over them; the encoder's output lands in
+        ``ServeState.enc_out`` at its lane.  A family without K/V (rwkv6)
+        issues no burst: its lanes are activated directly."""
         if not items:
             return []
         t_admit0 = time.perf_counter()
@@ -503,9 +528,16 @@ class ServingEngine:
                              flat(self.state.paged.v_pages))
                 batch["prefix_k"], batch["prefix_v"] = prefix_kv
             elif self.cache is not None and not self.recurrent \
-                    and not n_prefix:
+                    and not n_prefix and self.cfg.family != "audio":
                 for it in group:                   # record the miss
                     self.cache.probe(it.tokens, touch=True)
+            if self.cfg.family == "audio":
+                fr = np.zeros((width, self.cfg.encoder_seq_len,
+                               self.cfg.d_model), np.float32)
+                for i, it in enumerate(group):
+                    fr[i] = it.frames
+                batch["frames"] = torch.as_tensor(
+                    fr, dtype=self.params.embed.dtype, device=dev)
             if n_prefix:
                 pe = np.zeros((width, n_prefix, self.cfg.d_model), np.float32)
                 for i, it in enumerate(group):
@@ -523,6 +555,10 @@ class ServingEngine:
                                      [int(it.lane) for it in group])
             else:
                 all_next.append(res.last_logits[:k].argmax(dim=-1).to(I32))
+            if res.enc_out is not None:
+                self.state.enc_out[torch.as_tensor(
+                    [int(it.lane) for it in group], device=dev)] = \
+                    res.enc_out[:k].to(self.state.enc_out.dtype)
             all_lanes.extend(int(it.lane) for it in group)
             # alias mode installs the suffix alone; the cached prefix rides
             # as prefix_lens
@@ -531,8 +567,10 @@ class ServingEngine:
                            for n in lengths[:k])
             for it in group:
                 lane_cached[int(it.lane)] = cached_len
-                if n_prefix:
-                    self._patched.add(int(it.lane))
+                if n_prefix or it.frames is not None:
+                    self._no_demote.add(int(it.lane))
+            if res.kv is None:                   # rwkv6: no K/V
+                continue
             ks, vs = res.kv                      # [width, L, T, kv, hd]
             ks, vs = ks[:k], vs[:k]
             if prefix_kv is not None and not alias:
@@ -550,38 +588,19 @@ class ServingEngine:
         perm = torch.as_tensor(order, device=dev)
         lanes_arr = torch.as_tensor(lanes_np, device=dev)
         next_tokens = torch.cat(all_next)[perm]
-        # pad every group's KV to the widest time extent, then ONE burst
-        t_max = max(c[0].shape[2] for c in kv_chunks)
-
-        def padded(i):
-            return torch.cat([torch.nn.functional.pad(
-                c[i], (0, 0, 0, 0, 0, t_max - c[i].shape[2]))
-                for c in kv_chunks])
-
         kv_lens = torch.as_tensor(np.asarray(all_len, np.int32)[order],
                                   device=dev)
-        pb = pl = None
-        if lane_prefix:
-            # burst-order [B, P] cached pages and [B] aliased token counts;
-            # rows without a hit carry zeros (masked by their length 0)
-            P = max(len(b) for b, _ in lane_prefix.values())
-            pb_np = np.zeros((len(lanes_np), P), np.int32)
-            pl_np = np.zeros((len(lanes_np),), np.int32)
-            for r, lane in enumerate(lanes_np):
-                rec = lane_prefix.get(int(lane))
-                if rec is not None:
-                    pb_np[r, : len(rec[0])] = rec[0]
-                    pl_np[r] = len(rec[0]) * ps
-            pb = torch.as_tensor(pb_np, device=dev)
-            pl = torch.as_tensor(pl_np, device=dev)
-        paged, stats = pkv.admit_prefill_many(
-            self.kvcfg, self.state.paged, lanes_arr, padded(0)[perm],
-            padded(1)[perm], kv_lens, self.tenants, prefix_blocks=pb,
-            prefix_lens=pl)
-        self.stats.hmq_admit_bursts += 1
-        self.stats.alloc_failures += int(stats.failed)
-        self._note_burst(stats.per_tenant, stats.queue_live,
-                         stats.queue_capacity)
+        if kv_chunks:
+            paged = self._admission_burst(kv_chunks, perm, lanes_arr, lanes_np,
+                                          kv_lens, lane_prefix)
+        else:
+            # attention-free (rwkv6): no pages to allocate; activate lanes
+            paged = self.state.paged
+            idx = lanes_arr.long()
+            seq_lens, active = paged.seq_lens.clone(), paged.active.clone()
+            seq_lens[idx] = kv_lens
+            active[idx] = True
+            paged = paged._replace(seq_lens=seq_lens, active=active)
         self.state = self.state._replace(
             paged=paged,
             tokens=self.state.tokens.index_put((lanes_arr.long(),),
@@ -590,7 +609,7 @@ class ServingEngine:
         ok = paged.active[lanes_arr.long()].cpu().tolist()
         failed = [lane for lane, o in zip(lanes_host, ok) if not o]
         ok_lanes = [lane for lane, o in zip(lanes_host, ok) if o]
-        if ok_lanes:
+        if ok_lanes and kv_chunks:
             # how well the policy served admission's run grants
             ext, pgs = pkv.extent_stats(paged.block_tables, ok_lanes)
             self.stats.contiguous_extents += ext
@@ -627,25 +646,66 @@ class ServingEngine:
                 (time.perf_counter() - t_admit0) * 1e6
         return failed
 
+    def _admission_burst(self, kv_chunks, perm, lanes_arr, lanes_np,
+                         kv_lens, lane_prefix) -> pkv.PagedKVState:
+        """Every group's K/V padded to the widest time extent, then ONE
+        admission burst for the batch (burst order: ``perm``)."""
+        ps = self.kvcfg.page_size
+        dev = self.device
+        t_max = max(c[0].shape[2] for c in kv_chunks)
+
+        def padded(i):
+            return torch.cat([torch.nn.functional.pad(
+                c[i], (0, 0, 0, 0, 0, t_max - c[i].shape[2]))
+                for c in kv_chunks])
+
+        pb = pl = None
+        if lane_prefix:
+            # burst-order [B, P] cached pages and [B] aliased token counts;
+            # rows without a hit carry zeros (masked by their length 0)
+            P = max(len(b) for b, _ in lane_prefix.values())
+            pb_np = np.zeros((len(lanes_np), P), np.int32)
+            pl_np = np.zeros((len(lanes_np),), np.int32)
+            for r, lane in enumerate(lanes_np):
+                rec = lane_prefix.get(int(lane))
+                if rec is not None:
+                    pb_np[r, : len(rec[0])] = rec[0]
+                    pl_np[r] = len(rec[0]) * ps
+            pb = torch.as_tensor(pb_np, device=dev)
+            pl = torch.as_tensor(pl_np, device=dev)
+        paged, stats = pkv.admit_prefill_many(
+            self.kvcfg, self.state.paged, lanes_arr, padded(0)[perm],
+            padded(1)[perm], kv_lens, self.tenants, prefix_blocks=pb,
+            prefix_lens=pl)
+        self.stats.hmq_admit_bursts += 1
+        self.stats.alloc_failures += int(stats.failed)
+        self._note_burst(stats.per_tenant, stats.queue_live,
+                         stats.queue_capacity)
+        return paged
+
     def _install_states(self, states: RecurrentState, k: int,
                         lanes: list[int]) -> None:
         """Scatter the first ``k`` prefill rows' per-layer recurrent states
-        into the lanes' slots (the conv tails cast to the state's dtype)."""
-        rec = self.state.rec
+        into the lanes' slots (every part but the f32 ``ssm`` cast to the
+        state's dtype)."""
         idx = torch.as_tensor(lanes, device=self.device)
-        ssm, conv = rec.ssm.clone(), rec.conv.clone()
-        ssm[:, idx] = states.ssm[:, :k]
-        conv[:, idx] = states.conv[:, :k].to(conv.dtype)
-        self.state = self.state._replace(rec=RecurrentState(ssm=ssm,
-                                                            conv=conv))
+        parts = {}
+        for name, have in self.state.rec._asdict().items():
+            if have is None:
+                continue
+            have = have.clone()
+            have[:, idx] = getattr(states, name)[:, :k].to(have.dtype)
+            parts[name] = have
+        self.state = self.state._replace(rec=RecurrentState(**parts))
 
     def admit(self, lane: int, tokens: np.ndarray,
+              frames: Optional[np.ndarray] = None,
               patches: Optional[np.ndarray] = None) -> bool:
-        """Prefill one sequence (behind its ``patches``, vlm) into
-        ``lane``; False when the allocator rejected it (the lane is left
-        inactive and clean)."""
+        """Prefill one sequence (over its ``frames``, audio; behind its
+        ``patches``, vlm) into ``lane``; False when the allocator rejected
+        it (the lane is left inactive and clean)."""
         return not self.admit_many([AdmissionItem(
-            lane, np.asarray(tokens, np.int32), patches)])
+            lane, np.asarray(tokens, np.int32), frames, patches)])
 
     # ---------------- decode ----------------
 
@@ -661,6 +721,7 @@ class ServingEngine:
             self.state, _logits, stats = self._decode(
                 self.params, self.state)
         self.stats.decode_steps += 1
+        self.stats.decode_commits += self.cfg.family != "ssm"
         scalars = torch.stack([stats.failed, stats.bursts, stats.stash_hits,
                                stats.stash_misses]).cpu().tolist()
         failed, bursts, hits, misses = scalars
@@ -699,7 +760,7 @@ class ServingEngine:
             shared = self._unalias_lanes(lanes)
             if shared:
                 extra = (extra or []) + shared
-        self._patched.difference_update(int(lane) for lane in lanes)
+        self._no_demote.difference_update(int(lane) for lane in lanes)
         pkts = release_packet_array(list(lanes), self.kvcfg.max_lanes)
         paged, stats = pkv.release_packets(
             self.kvcfg, self.state.paged,

@@ -241,6 +241,7 @@ class MultiEngine:
                     # ride the window commit as single frees
                     evicted[i].extend(eng._unalias_lanes(finished))
                     eng._sync_cache_stats()
+                eng._no_demote.difference_update(finished)
                 mask = np.zeros((self.kvcfg.max_lanes,), bool)
                 mask[finished] = True
                 eng.state = eng.state._replace(

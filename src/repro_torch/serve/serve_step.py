@@ -1,11 +1,14 @@
 """Serving steps: decode (one token per lane per step) and prefill (port of
-:mod:`repro.serve.serve_step`, dense, vlm and hybrid families).
+:mod:`repro.serve.serve_step`, every family the port serves).
 
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
 (``decode_append``); the prefill's attention is the flash kernel on the
-card.  The hybrid family also threads the lanes' recurrent state
-(``ServeState.rec``) through both.
+card.  The hybrid and ssm families also thread the lanes' recurrent state
+(``ServeState.rec``) through both.  The ssm family (rwkv6) has no K/V: its
+decode step issues no burst and only advances the active lanes'
+``seq_lens``.  The audio family (whisper) keeps each lane's encoder output
+(``ServeState.enc_out``), which its prefill computes and its decode reads.
 
 Each shard of a multi-engine deployment builds its own decode step from
 its own tenant set.  The JAX package shares one step across shards (class
@@ -22,7 +25,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.paged_kv import (PagedKVConfig, PagedKVState, PagedTenants,
-                             decode_append, init_paged_kv)
+                             PendingDecodeOps, decode_append,
+                             empty_decode_stats, init_paged_kv)
 from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
                              init_recurrent_state)
 from ..models.transformer import forward
@@ -33,7 +37,18 @@ I32 = torch.int32
 class ServeState(NamedTuple):
     paged: PagedKVState
     tokens: torch.Tensor                 # [lanes] last sampled token
-    rec: Optional[RecurrentState] = None  # hybrid: the lanes' recurrent state
+    rec: Optional[RecurrentState] = None  # hybrid, ssm: the lanes' state
+    enc_out: Optional[torch.Tensor] = None  # audio: [lanes, F, d] encoder out
+
+
+def init_enc_out(cfg: ArchConfig, lanes: int, dtype: torch.dtype,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """Zero encoder outputs ``[lanes, F, d]`` for the audio family, else
+    ``None``."""
+    if cfg.family != "audio":
+        return None
+    return torch.zeros((lanes, cfg.encoder_seq_len, cfg.d_model),
+                       dtype=dtype, device=device)
 
 
 def init_serve_state(
@@ -46,8 +61,8 @@ def init_serve_state(
     """A serving state with ``lanes`` active sequences of ``prefilled_len``
     tokens, allocator metadata set up as if prefill had admitted them (the
     JAX package's decode dry-run/benchmark state; the real admission path
-    is :class:`repro_torch.serve.engine.ServingEngine`).  The hybrid
-    family's recurrent state starts at zero in ``kvcfg.dtype``."""
+    is :class:`repro_torch.serve.engine.ServingEngine`).  A recurrent
+    state and whisper's encoder outputs start at zero in ``kvcfg.dtype``."""
     paged = init_paged_kv(kvcfg, tenants)
     dev = paged.seq_lens.device
     ps = kvcfg.page_size
@@ -84,7 +99,8 @@ def init_serve_state(
         active=torch.ones((lanes,), dtype=torch.bool, device=dev))
     return ServeState(paged=paged,
                       tokens=torch.zeros((lanes,), dtype=I32, device=dev),
-                      rec=init_recurrent_state(cfg, lanes, kvcfg.dtype, dev))
+                      rec=init_recurrent_state(cfg, lanes, kvcfg.dtype, dev),
+                      enc_out=init_enc_out(cfg, lanes, kvcfg.dtype, dev))
 
 
 def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
@@ -95,30 +111,45 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     ``defer_refill``.
 
     The step's one allocator burst goes through ``tenants.service``: the
-    CUDA kernel when the state lives on the card.
+    CUDA kernel when the state lives on the card.  An attention-free step
+    (rwkv6) issues none: it advances the active lanes' ``seq_lens`` and
+    returns all-zero stats (and no deferred refill).
     """
     def serve_step(params, state: ServeState):
-        hidden, (new_k, new_v), rec = decode_hidden(
-            params, cfg, state.paged, state.tokens, state.rec)
+        hidden, new_kv, rec = decode_hidden(
+            params, cfg, state.paged, state.tokens, state.rec,
+            state.enc_out)
         logits = decode_logits(params, hidden)
         next_tokens = logits.argmax(dim=-1).to(I32)
-        paged, *rest = decode_append(kvcfg, state.paged, new_k, new_v,
-                                     tenants, defer_refill=defer_refill)
-        return (ServeState(paged=paged, tokens=next_tokens, rec=rec), logits,
-                *rest)
+        if new_kv is not None:
+            paged, *rest = decode_append(kvcfg, state.paged, *new_kv,
+                                         tenants, defer_refill=defer_refill)
+        else:
+            paged = state.paged._replace(
+                seq_lens=state.paged.seq_lens + state.paged.active.to(I32))
+            rest = [empty_decode_stats(kvcfg, tenants)]
+            if defer_refill:
+                none = torch.zeros_like(paged.active)
+                rest.append(PendingDecodeOps(
+                    below=none, flush_mask=none,
+                    flush_blocks=torch.full_like(paged.seq_lens, -1)))
+        return (state._replace(paged=paged, tokens=next_tokens, rec=rec),
+                logits, *rest)
 
     return serve_step
 
 
 class PrefillResult(NamedTuple):
     """Output of the prefill: ``last_logits [B, V]`` at each sequence's
-    last real position (``None`` for the hybrid family), ``kv`` = (k, v),
-    each ``[B, L_kv, T, KV, hd]``, and the hybrid family's per-layer
-    ``states`` (``[L, B, ...]``, else ``None``)."""
+    last real position (``None`` for the recurrent families), ``kv`` =
+    (k, v), each ``[B, L_kv, T, KV, hd]`` (``None`` for rwkv6), the
+    recurrent families' per-layer ``states`` (``[L, B, ...]``, else
+    ``None``) and whisper's ``enc_out [B, F, d]``."""
 
     last_logits: Optional[torch.Tensor]
     kv: Optional[tuple]
     states: Optional[RecurrentState] = None
+    enc_out: Optional[torch.Tensor] = None
 
 
 def make_family_prefill(cfg: ArchConfig):
@@ -130,11 +161,15 @@ def make_family_prefill(cfg: ArchConfig):
     the tokens follow, the K/V cover all ``P + T`` rows and the last
     logits are row ``P + lengths - 1``.
 
-    The hybrid family folds every token into its state, so its batches
-    must be exact-length (the scheduler's exact buckets); it returns the
-    states a decode continues from and no logits: the engine seeds a
-    hybrid decode with the last prompt token (the JAX engine's
-    ``recurrent_logits=False``).
+    The recurrent families fold every token into their state, so their
+    batches must be exact-length (the scheduler's exact buckets); they
+    return the states a decode continues from and no logits: the engine
+    seeds their decode with the last prompt token (the JAX engine's
+    ``recurrent_logits=False``).  rwkv6 returns no K/V.
+
+    An audio batch adds ``frames [B, F, d]``: the encoder runs over them
+    once, the decoder's cross-attention reads its output, which comes back
+    as ``enc_out``.
 
     A prefix-cache hit adds ``prefix_k`` / ``prefix_v``, each ``[B, L, P,
     KV, hd]``: the cached K/V of absolute positions ``[0, P)``.  ``tokens``
@@ -143,6 +178,10 @@ def make_family_prefill(cfg: ArchConfig):
 
     def prefill(params, batch: dict) -> PrefillResult:
         toks = batch["tokens"]
+        if cfg.family == "ssm":
+            wkv, tm, cm = params.prefill(toks)
+            return PrefillResult(None, None, RecurrentState(
+                ssm=wkv, tm_prev=tm, cm_prev=cm))
         if cfg.family == "hybrid":
             (ks, vs), (ssm, conv) = params.prefill(toks)
             return PrefillResult(None, (ks.transpose(0, 1),
@@ -150,7 +189,10 @@ def make_family_prefill(cfg: ArchConfig):
                                  RecurrentState(ssm=ssm, conv=conv))
         pk = batch.get("prefix_k")
         last = batch["lengths"].long() - 1
-        if cfg.family == "vlm" and batch.get("patches") is not None:
+        enc_out = None
+        if cfg.family == "audio":
+            logits, (ks, vs), enc_out = params.prefill(toks, batch["frames"])
+        elif cfg.family == "vlm" and batch.get("patches") is not None:
             logits, (ks, vs) = forward(params, toks, return_kv=True,
                                        prefix_embeds=batch["patches"])
             last = last + batch["patches"].shape[1]
@@ -164,6 +206,7 @@ def make_family_prefill(cfg: ArchConfig):
                 pos_offset=pk.shape[2])
         rows = torch.arange(toks.shape[0], device=toks.device)
         return PrefillResult(logits[rows, last],
-                             (ks.transpose(0, 1), vs.transpose(0, 1)))
+                             (ks.transpose(0, 1), vs.transpose(0, 1)),
+                             enc_out=enc_out)
 
     return prefill

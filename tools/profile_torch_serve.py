@@ -10,7 +10,14 @@ lanes, its page size), admits the first batch, runs three decode steps to warm
 up, then traces ``--steps`` decode steps with ``torch.profiler``.  Prints
 the window's wall time, the summed device kernel time and the device's
 idle share, kernel time by name, and the shares of the port's kernels and
-of device copies.  Fails when the profiler records no device time.
+of device copies.  For zamba2-1.2b, rwkv6-7b and whisper-medium it then
+profiles the step's family pieces alone on the same lanes' state
+(``chip_smoke.step_profile``'s parts) and gives each one's share of the
+step's device time: the Mamba2 blocks and their SSD recurrence; the
+RWKV6 time mixes and their wkv recurrence; whisper's cross K/V
+projection (``2 x lanes x frames x d x KV*hd`` multiply-adds a layer,
+anew every step, with its rate) and its cross-attention flash calls.
+Fails when the profiler records no device time.
 """
 from __future__ import annotations
 
@@ -31,12 +38,14 @@ sys.path.insert(0, str(ROOT))
 SHARES = {"support-core kernel": ("support_core",),
           "paged attention kernel (both passes)": ("paged_attention",
                                                    "paged_combine"),
+          "flash attention kernel": ("flash_",),
           "device copies": ("copy", "Copy")}
 
 
 def main() -> None:
-    from chip_smoke import SERVE_LANES, WORKLOADS, full_width_config, \
-        make_requests
+    from chip_smoke import (SERVE_LANES, WORKLOADS, device_profile,
+                            full_width_config, hybrid_parts, make_requests,
+                            rwkv6_parts, whisper_parts)
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="deepseek-7b", choices=list(WORKLOADS))
     ap.add_argument("--steps", type=int, default=8)
@@ -97,6 +106,23 @@ def main() -> None:
         n = sum(e.count for e in kernels if any(f in e.key for f in frags))
         print(f"{label}: {us / 1e3:.3f} ms in {n} launches "
               f"({us / device_us:.4f} of device time)")
+    parts = {"zamba2-1.2b": hybrid_parts, "rwkv6-7b": rwkv6_parts,
+             "whisper-medium": whisper_parts}.get(args.arch)
+    if parts is None:
+        return
+    step_us = device_us / args.steps
+    lanes = int(eng.state.paged.active.sum())
+    for key, (label, fn) in parts(eng).items():
+        us, n, _ = device_profile(fn, args.steps)
+        rate = ""
+        if key == "cross_kv":
+            flop = 2 * 2 * lanes * cfg.num_layers * cfg.encoder_seq_len \
+                * cfg.d_model * cfg.num_kv_heads * cfg.resolved_head_dim
+            rate = (f"; {flop / 1e9:.1f} GFLOP a step at {lanes} lanes, "
+                    f"{flop / us / 1e6:.1f} TFLOP/s")
+        print(f"{label} alone: {us / 1e3:.3f} ms device time in {n:.0f} "
+              f"launches a step ({us / step_us:.4f} of the step's device "
+              f"time){rate}")
 
 
 if __name__ == "__main__":
