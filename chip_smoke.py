@@ -155,8 +155,38 @@ Phases, each failing loudly (non-zero exit, no result line):
                two shards without one under the free list and under buddy
                (a compaction pass after the second window), window by
                window on both devices, to the same checks;
-6.  result   -- the card's line again, one JSON line describing the
-               kernels, then the last line ``{"ok": true, "device": {...}}``.
+6a. train    -- for the eight architectures at phase 5's reduced configs
+               (gemma3-1b with one local and one global layer and 128-token
+               rows, past its window of 64), f32 with TF32 off, the same
+               weights and ``TokenSource`` batch on the card and on the
+               CPU: two ``make_train_step`` steps, the second with
+               ``grad_accum=2`` and compression; loss, gradient norm,
+               first moments and every parameter card against CPU within
+               the tolerances of ``train_device_vs_cpu``; no flash launch
+               in a train step; the flash op raises on an input that
+               requires a gradient;
+6b. train    -- gemma3-1b at its published widths (about 1.0 B parameters)
+               in bf16 with remat, one ``DataPipeline`` batch of 8 x 1024
+               tokens trained 8 times: every loss finite, the last below
+               the first; prints the losses, gradient norms, step times
+               (each ending when the loss is read back), tokens/s, peak
+               memory and the card's line; then the step's parts: forward
+               + backward, the AdamW update, the cross entropy and
+               ``mea_attention`` alone (forward + backward) beside
+               ``F.cross_entropy`` and SDPA (timed here only) and their
+               bounds;
+6c. trainer  -- the port's ``Trainer`` on the card in bf16 at gemma3-1b's
+               widths with 2 layers and a 16384-word vocabulary (a 0.73 GB
+               checkpoint): preempted at step 6, it restarts once from the
+               checkpoint of step 4 and ends within 1e-2 of an
+               uninterrupted run's loss; the last checkpoint, restored onto
+               the card and saved again, gives the same files, its bf16
+               leaves bit for bit; phase 6 prints one JSON line of its
+               numbers;
+7.  result   -- the card's line again, one JSON line describing the
+               kernels (each kernel's launches also counted over the
+               training runs of 6b and 6c: none), then the last line
+               ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2567,6 +2597,384 @@ def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
               f"{', '.join(f'{x:.2f}' for x in runs_len)}{slots}")
 
 
+# --------------------------------------------------------------------------
+# phase 6: training
+# AdamW's learning rate in phase 6 (the JAX Trainer's)
+TRAIN_LR = 1e-3
+# 6a: the reduced configs of phase 5 (gemma3 at 128 tokens, past its
+# window of 64), two steps: one plain, one with grad_accum=2 and
+# compression on
+TRAIN_SMALL = dict(batch=4, seq=64, window_seq=128)
+# 6b: gemma3-1b at its published widths, bf16, remat on, one batch of
+# 8 x 1024 tokens (the window of 512 binds on the local layers) trained 8
+# times
+TRAIN_FULL = dict(arch="gemma3-1b", batch=8, seq=1024, steps=8)
+# 6c: gemma3-1b's widths at 2 layers (one local, one global) and a
+# vocabulary cut to 16384: 72.6 M parameters, a 0.73 GB checkpoint; 8
+# steps of 4 x 256 tokens, a checkpoint every 4, a preemption at step 6.
+# Its final loss within TRAIN_PREEMPT["tol"] of an uninterrupted run's
+# (bf16; the embedding's backward accumulates with atomics on the card,
+# so the two runs round alike only up to the order of those sums)
+TRAIN_PREEMPT = dict(layers=2, vocab=16384, batch=4, seq=256, steps=8,
+                     every=4, fail_at=6, tol=1e-2)
+TRAIN_DIR = ROOT / "build" / "train_checkpoints"
+
+
+def train_config(arch: str):
+    """Phase 5's reduced config of ``arch`` (gemma3-1b with one local and
+    one global layer)."""
+    from repro_torch.configs import smoke_config
+    cfg = dataclasses.replace(smoke_config(arch), **SMALL_DEPTH.get(arch, {}))
+    if cfg.attn_pattern == "local_global":
+        cfg = dataclasses.replace(cfg, local_per_global=1)
+    return cfg
+
+
+def train_device_vs_cpu(dev, arch: str) -> dict:
+    """6a: two train steps of ``arch`` at phase 5's reduced config in f32
+    (TF32 off) on the card and on the CPU from the same weights and batch:
+    one plain, one with ``grad_accum=2`` and compression.  Loss within
+    1e-5 and gradient norm within 1e-4 relative at each step; after the
+    first, every gradient elementwise through the first moment (``m =
+    (1 - b1) g``) within 1e-4 of its leaf's max |m|; after both, each
+    parameter within 4 x lr (a near-zero gradient may flip the sign of an
+    update in each step, and a compressed value near a rounding boundary
+    may round the other way); no flash launch in a train step."""
+    from repro_torch.data import TokenSource
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(arch)
+    seq = TRAIN_SMALL["window_seq"] if cfg.window else TRAIN_SMALL["seq"]
+    batch = TokenSource(cfg, seed=0).batch(0, 0, TRAIN_SMALL["batch"], seq)
+    opt = AdamW(lr=TRAIN_LR)
+    steps = (make_train_step(cfg, opt),
+             make_train_step(cfg, opt, grad_accum=2,
+                             compression=CompressionConfig(enabled=True)))
+    params_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to(dev)
+    runs = {}
+    for name, params, d in (("cuda", params_gpu, dev),
+                            ("cpu", params_cpu, "cpu")):
+        params.requires_grad_(True)
+        state = opt.init(params)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        before = FLASH_KERNEL.launches
+        metrics, first = [], None
+        for fn in steps:
+            _, state, m = fn(params, state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if first is None:
+                first = {n: t.cpu().clone() for n, t in state.m.items()}
+        if FLASH_KERNEL.launches != before:
+            fail(f"6a {arch}: a train step launched the flash kernel "
+                 f"({FLASH_KERNEL.launches - before} times)")
+        runs[name] = (params, first, metrics)
+    (pg, fg, mg), (pc, fc, mc) = runs["cuda"], runs["cpu"]
+    for i, ((lg, ng), (lc, nc)) in enumerate(zip(mg, mc)):
+        if not (np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc)
+                and abs(ng - nc) <= 1e-4 * nc):
+            fail(f"6a {arch} step {i + 1}: loss {lg} / {lc}, grad_norm "
+                 f"{ng} / {nc} (cuda / cpu)")
+    m_err = max(float((fg[n] - fc[n]).abs().max())
+                / max(float(fc[n].abs().max()), 1e-30) for n in fc)
+    p_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(pg.parameters(), pc.parameters()))
+    if m_err > 1e-4 or p_err > 4 * TRAIN_LR:
+        fail(f"6a {arch}: gradients of step 1 {m_err:.3e} of their max "
+             f"apart, parameters {p_err:.3e} apart (cuda / cpu)")
+    print(f"  {arch} ({cfg.num_layers} layers, {seq} tokens x "
+          f"{TRAIN_SMALL['batch']}): cuda and cpu agree over 2 steps (the "
+          f"second grad_accum=2 + compression): loss "
+          f"{mg[0][0]:.6f} -> {mg[1][0]:.6f} (cpu {mc[1][0]:.6f}), "
+          f"grad_norm {mg[1][1]:.6f} (cpu {mc[1][1]:.6f}), step 1's "
+          f"gradients within {m_err:.2e} of their max, parameters within "
+          f"{p_err:.3e}; 0 flash launches")
+    return dict(losses=[m[0] for m in mg], cpu_losses=[m[0] for m in mc],
+                grad_rel_err=m_err, max_param_diff=p_err)
+
+
+def check_flash_refuses_grad(dev) -> None:
+    """6a: the forward-only flash op raises on an input that requires a
+    gradient (grad mode on), on the card."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    q, k, v = (torch.randn(1, 64, 2, 64, device=dev) for _ in range(3))
+    q.requires_grad_(True)
+    try:
+        flash_attention_op(q, k, v)
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+        print("  the flash op raises on an input that requires a gradient")
+        return
+    fail("the flash op took an input that requires a gradient")
+
+
+def cuda_ms(fn, n: int = 3) -> float:
+    """Median of ``n`` CUDA-event times of ``fn`` after one warm call (for
+    calls of milliseconds, where the host's launch overhead hides under
+    the device work)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def train_parts(dev, cfg, params, state, opt, batch) -> dict:
+    """6b's step split: forward + backward (``loss_fn`` with remat) and the
+    AdamW update at full width; then the cross entropy alone on the
+    step's logits shape and ``mea_attention`` alone at one layer's
+    shapes, each forward + backward, beside the library call that computes
+    the same function (``F.cross_entropy``; SDPA, with a boolean band mask
+    for the window), timed here only: the baselines of a fused
+    cross-entropy kernel and a flash backward kernel (ROADMAP)."""
+    import torch.nn.functional as F
+    from repro_torch.models import loss_fn
+    from repro_torch.models.attention import mea_attention
+    from repro_torch.models.losses import softmax_cross_entropy
+    named = list(params.named_parameters())
+
+    def fwd_bwd():
+        for _, p in named:
+            p.grad = None
+        loss_fn(params, cfg, batch)[0].backward()
+    out = {"forward_backward_ms": cuda_ms(fwd_bwd)}
+    grads = {n: p.grad for n, p in named}
+    out["adamw_update_ms"] = cuda_ms(lambda: opt.update(grads, state,
+                                                        params))
+    for _, p in named:
+        p.grad = None
+    del grads
+    B, S, V = TRAIN_FULL["batch"], TRAIN_FULL["seq"], cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((B, S, V), device=dev, dtype=torch.bfloat16,
+                         generator=gen).requires_grad_(True)
+    labels = batch["labels"]
+
+    def ce():
+        logits.grad = None
+        softmax_cross_entropy(logits, labels).sum().backward()
+
+    def ce_lib():
+        logits.grad = None
+        F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1).long(),
+                        reduction="sum").backward()
+    out["cross_entropy_ms"] = cuda_ms(ce)
+    out["cross_entropy_library_ms"] = cuda_ms(ce_lib)
+    # bytes the pair must move: the logits read (twice: forward, backward)
+    # and their gradient written
+    out["cross_entropy_bound_ms"] = 3 * logits.numel() * 2 \
+        / HBM_BYTES_PER_S * 1e3
+    del logits
+    torch.cuda.empty_cache()
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((B, S, H, hd), device=dev, dtype=torch.bfloat16,
+                    generator=gen).requires_grad_(True)
+    k, v = (torch.randn((B, S, KV, hd), device=dev, dtype=torch.bfloat16,
+                        generator=gen).requires_grad_(True)
+            for _ in range(2))
+    qpos = torch.arange(S, device=dev)
+    for name, window in (("local", cfg.window), ("global", None)):
+        def plain():
+            mea_attention(q, k, v, causal=True, window=window).float().sum(
+            ).backward()
+        mask = qpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= qpos[None, :] > qpos[:, None] - window
+
+        def lib():
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(
+                    H // KV, 1), v.transpose(1, 2).repeat_interleave(
+                    H // KV, 1), attn_mask=mask).float().sum().backward()
+        def forward():
+            with torch.no_grad():
+                mea_attention(q, k, v, causal=True, window=window)
+        out[f"attention_{name}_ms"] = cuda_ms(plain)
+        out[f"attention_{name}_forward_ms"] = cuda_ms(forward)
+        out[f"attention_{name}_library_ms"] = cuda_ms(lib)
+        # forward (QK^T, PV over the keys a query sees) and backward (2x)
+        keys = sum(min(i + 1, window or S) for i in range(S))
+        out[f"attention_{name}_bound_ms"] = 3 * 4 * B * H * keys * hd \
+            / TENSOR_BF16_OPS_PER_S * 1e3
+    return out
+
+
+def train_full_width(dev) -> dict:
+    """6b: gemma3-1b at its published widths in bf16, remat on, one batch
+    of 8 x 1024 tokens from ``DataPipeline`` trained 8 times through
+    ``make_train_step``: every loss finite, the last below the first;
+    step times end when the loss is read back.  Then the step's parts."""
+    from repro_torch.data import DataPipeline, TokenSource
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+    arch, B, S = TRAIN_FULL["arch"], TRAIN_FULL["batch"], TRAIN_FULL["seq"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = full_width_params(dev, arch)
+    params.requires_grad_(True)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    pipe = DataPipeline(TokenSource(cfg, seed=0), global_batch=B, seq_len=S)
+    host = next(pipe)
+    pipe.close()
+    if host.pop("_step") != 0:
+        fail("6b: the pipeline's first batch is not step 0")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    step = make_train_step(cfg, opt, remat=True)
+    zero_launches()
+    losses, norms, times = [], [], []
+    for _ in range(TRAIN_FULL["steps"]):
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    launches = read_launches()
+    check_launches(f"6b {arch} train", launches,
+                   dict.fromkeys(launches, 0), off_path=tuple(launches))
+    peak = torch.cuda.max_memory_allocated()
+    state_gb = (sum(p.numel() * p.element_size() * 2 for p in
+                    params.parameters()) + 8 * n_params) / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"6b {arch}: losses {losses} (finite, the last below the "
+             f"first, expected)")
+    med = statistics.median(times)
+    card = card_line()
+    print(f"  {arch} train, bf16, remat, {B} x {S} tokens: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+          f"{', '.join(f'{x:.4f}' for x in norms)}")
+    print(f"  median step {med:.2f} ms ({', '.join(f'{t:.1f}' for t in times)}"
+          f"), {B * S / med * 1e3:.1f} tokens/s; peak {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} above the process's "
+          f"{base / 2**30:.2f}), {n_params / 1e9:.4f} B parameters, state "
+          f"{state_gb:.2f} GB; {card}")
+    parts = train_parts(dev, cfg, params, state, opt, batch)
+    # each layer's attention: forward + backward, and the remat forward
+    from repro_torch.models.transformer import layer_windows
+    kinds = ["global" if w >= FULL else "local" for w in layer_windows(cfg)]
+    parts["attention_in_step_ms"] = sum(
+        parts[f"attention_{k}_ms"] + parts[f"attention_{k}_forward_ms"]
+        for k in kinds)
+    print("  parts: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    print(f"  the plain attention takes about "
+          f"{parts['attention_in_step_ms']:.1f} ms of the {med:.2f} ms step "
+          f"({kinds.count('local')} local and {kinds.count('global')} global "
+          f"layers, each forward + backward and the remat forward)")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, step_ms=times,
+                median_step_ms=med, tokens_per_s=B * S / med * 1e3,
+                peak_gib=peak / 2**30, parameters=n_params,
+                state_gb=state_gb, parts=parts, card=card,
+                launches=launches)
+
+
+def _files(step_dir: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(step_dir.iterdir())}
+
+
+def train_preempted(dev) -> dict:
+    """6c: the port's ``Trainer`` on the card, bf16, at
+    ``TRAIN_PREEMPT``'s reduced gemma3-1b: preempted at step 6, it must
+    restart once from step 4 and end within the tolerance of an
+    uninterrupted run; the last checkpoint, restored onto the card and
+    saved again, gives the same files, and its bf16 leaves come back bit
+    for bit."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import (_flatten,
+                                                    restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           make_preemption_injector,
+                                           train_state_tree)
+    tp = TRAIN_PREEMPT
+    cfg = dataclasses.replace(get_config("gemma3-1b"),
+                              num_layers=tp["layers"], local_per_global=1,
+                              vocab_size=tp["vocab"])
+    cut = dict(num_layers=[26, tp["layers"]], vocab_size=[262144, tp["vocab"]])
+    print(f"  reduced: {json.dumps(cut)}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def tcfg(name):
+        return TrainerConfig(total_steps=tp["steps"],
+                             checkpoint_every=tp["every"],
+                             checkpoint_dir=str(TRAIN_DIR / name),
+                             batch_size=tp["batch"], seq_len=tp["seq"],
+                             log_every=100)
+    zero_launches()
+    t0 = time.perf_counter()
+    rep = Trainer(cfg, tcfg("preempted"), dtype=torch.bfloat16,
+                  fail_injector=make_preemption_injector(tp["fail_at"]),
+                  device=dev).run()
+    t_pre = time.perf_counter() - t0
+    rep2 = Trainer(cfg, tcfg("uninterrupted"), dtype=torch.bfloat16,
+                   device=dev).run()
+    launches = read_launches()
+    check_launches("6c trainer", launches, dict.fromkeys(launches, 0),
+                   off_path=tuple(launches))
+    if rep.restarts != 1 or rep.restored_from != tp["every"]:
+        fail(f"6c: restarts {rep.restarts}, restored from "
+             f"{rep.restored_from} (1 and {tp['every']} expected)")
+    diff = abs(rep.final_loss - rep2.final_loss)
+    if not np.isfinite(rep.final_loss) or diff > tp["tol"]:
+        fail(f"6c: final loss {rep.final_loss} after the preemption, "
+             f"{rep2.final_loss} without (tolerance {tp['tol']})")
+    last = TRAIN_DIR / "preempted" / f"step_{tp['steps']:08d}"
+    ckpt_gb = sum(len(b) for b in _files(last).values()) / 1e9
+    if ckpt_gb >= 1.0:
+        fail(f"6c: the checkpoint holds {ckpt_gb:.2f} GB (under 1 expected)")
+    tr = Trainer(cfg, tcfg("preempted"), dtype=torch.bfloat16, device=dev)
+    params, state, step = tr.restore_or_init()
+    tree = train_state_tree(params, state)
+    save_checkpoint(TRAIN_DIR / "again", tree, step)
+    if _files(TRAIN_DIR / "again" / last.name) != _files(last):
+        fail("6c: the checkpoint restored onto the card and saved again "
+             "differs from the one written")
+    back, _ = restore_checkpoint(TRAIN_DIR / "again",
+                                 train_state_tree(params, state, "meta"))
+    n_bf16 = 0
+    for key, leaf in _flatten(back).items():
+        want = _flatten(tree)[key]
+        if leaf.dtype != want.dtype or not torch.equal(
+                leaf.view(torch.int16) if leaf.dtype == torch.bfloat16
+                else leaf, want.view(torch.int16)
+                if want.dtype == torch.bfloat16 else want):
+            fail(f"6c: leaf {key} did not round-trip bit for bit")
+        n_bf16 += leaf.dtype == torch.bfloat16
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"  trainer: restarts {rep.restarts}, restored from "
+          f"{rep.restored_from}, final loss {rep.final_loss:.6f} "
+          f"(uninterrupted {rep2.final_loss:.6f}, difference {diff:.2e}), "
+          f"{rep.steps_run} steps in {t_pre:.1f}s, median step "
+          f"{statistics.median(rep.step_times_ms):.2f} ms, stragglers "
+          f"{rep.straggler_steps}; checkpoint {ckpt_gb:.3f} GB; step {step} "
+          f"restored onto the card and saved again: the same files, "
+          f"{n_bf16} bf16 leaves bit for bit")
+    return dict(restarts=rep.restarts, restored_from=rep.restored_from,
+                final_loss=rep.final_loss,
+                uninterrupted_final_loss=rep2.final_loss,
+                loss_difference=diff, checkpoint_gb=ckpt_gb,
+                losses=rep.losses, uninterrupted_losses=rep2.losses,
+                median_step_ms=statistics.median(rep.step_times_ms),
+                launches=launches)
+
+
 def kernel_signature(name: str) -> str:
     """A demangled kernel name without its return type, namespaces and
     parameter list: ``flash_mma_kernel<(int)256>``."""
@@ -2764,7 +3172,24 @@ def main() -> None:
                  "rwkv6-7b", "whisper-medium"):
         device_vs_cpu(dev, arch)
 
-    print("== 6. result")
+    print("== 6a. train: card against cpu, two steps at the reduced "
+          "configs in f32")
+    check_flash_refuses_grad(dev)
+    trained = {arch: train_device_vs_cpu(dev, arch) for arch in (
+        "deepseek-7b", "gemma3-1b", "zamba2-1.2b", "phi3-medium-14b",
+        "qwen2-72b", "phi-3-vision-4.2b", "rwkv6-7b", "whisper-medium")}
+    print("== 6b. train gemma3-1b at full width (bf16, remat, 8 x 1024 "
+          "tokens, one batch 8 times)")
+    full = train_full_width(dev)
+    served["gemma3-1b train"] = dict(launches=full.pop("launches"))
+    print("== 6c. the trainer on the card: a preemption at step 6, restart "
+          "from the checkpoint of step 4")
+    preempt = train_preempted(dev)
+    served["gemma3-1b trainer"] = dict(launches=preempt.pop("launches"))
+    print(json.dumps({"train": {"card_vs_cpu": trained, "full_width": full,
+                                "preempted": preempt}}))
+
+    print("== 7. result")
     print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):

@@ -36,6 +36,14 @@ _MODULE_BY_ID = {
     "whisper-medium": "whisper_medium",
 }
 
+#: the four assigned input shapes (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:

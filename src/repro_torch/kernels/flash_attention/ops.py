@@ -13,6 +13,12 @@ suffix attends over the cached prefix's keys):
 * a CUDA ``q`` launches the hand-written kernel or raises;
 * a CPU ``q`` runs the plain version (:mod:`.ref`).
 
+The kernel has no backward, so on either device the op raises when grad
+mode is on and an input requires a gradient, rather than hand back a
+result that would drop the attention's gradients; the training forward
+takes ``mea_attention`` (``differentiable=True`` in
+:mod:`repro_torch.models.transformer`).
+
 :data:`FLASH_KERNEL` counts launches.
 """
 from __future__ import annotations
@@ -52,6 +58,10 @@ def flash_attention_op(
     """Returns ``[B, Tq, H, hd]`` in q's dtype.  Query row i sits at
     absolute position ``q_offset + i`` and key j at ``j``: a prefill of a
     suffix over ``q_offset`` cached keys passes ``Tk = q_offset + Tq``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_op is forward-only: an input requires a "
+            "gradient; train through mea_attention (differentiable=True)")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)

@@ -4,7 +4,10 @@ The names resolve lazily (PEP 562): the models call the attention
 kernels, whose plain versions import :mod:`.attention`, so importing a
 kernel module first must not pull in the models above it.
 """
-__all__ = ["init_params", "make_paged_config", "params_from_numpy"]
+__all__ = ["IGNORE_LABEL", "abstract_params", "forward_train", "init_params",
+           "input_specs", "jax_layout", "loss_fn", "make_paged_config",
+           "params_from_numpy", "params_to_numpy", "port_layout",
+           "synth_batch"]
 
 
 def __getattr__(name):

@@ -4,47 +4,46 @@
   init_params(cfg, seed, dtype, device)  -- the family's LM (DenseLM,
                                             HybridLM, RWKV6LM or WhisperLM)
                                             from a seeded generator
-  params_from_numpy(tree, cfg, device)   -- the same from the JAX package's
+  abstract_params(cfg, dtype)            -- the same on the ``meta`` device
+                                            (shapes and dtypes, no storage)
+  params_from_numpy(tree, cfg, device)   -- the LM from the JAX package's
                                             parameter tree as numpy arrays
+  params_to_numpy(params)                -- its inverse: the JAX tree
+  jax_layout(named) / port_layout(tree, names)
+                                         -- any per-parameter tensors (the
+                                            weights, AdamW's m and v)
+                                            between the two layouts
+  forward_train(params, cfg, batch)      -- logits, on the training route
+  loss_fn(params, cfg, batch)            -- (loss, metrics)
+  input_specs(cfg, shape_name)           -- batch stand-ins on ``meta``
+  synth_batch(cfg, batch, seq, seed)     -- a small real batch
   make_paged_config(cfg, seq, lanes)     -- PagedKVConfig for a decode shape
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import SHAPES, ArchConfig
 from ..core.lane_stash import autotune_stash
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
-from .layers import LayerNorm
-from .mamba2 import F32_PARAMS
-from .rwkv6 import F32_PARAMS as RWKV6_F32_PARAMS
-from .transformer import init_lm_params, lm_class
+from .losses import softmax_cross_entropy
+from .transformer import forward, init_lm_params, lm_class
 
+IGNORE_LABEL = -1
 DEFAULT_PAGE_SIZE = 64
 
-_BLOCK_KEYS = {          # AttnBlock attribute -> path in the JAX layer tree
-    "ln_attn": ("ln_attn",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
-    "wv": ("attn", "wv"), "wo": ("attn", "wo"), "ln_mlp": ("ln_mlp",),
-    "w_in": ("mlp", "w_in"), "w_out": ("mlp", "w_out"),
-}
-_BIAS_KEYS = {"bq": ("attn", "bq"), "bk": ("attn", "bk"),   # qkv_bias only
-              "bv": ("attn", "bv")}
-_MLP_BIAS_KEYS = {"b_in": ("mlp", "b_in"),                  # gelu MLP only
-                  "b_out": ("mlp", "b_out")}
-_MAMBA_KEYS = ("in_proj", "out_proj", "conv_w", "conv_b", "A_log", "D",
-               "dt_bias", "norm_scale")
-_CROSS_KEYS = {"ln": ("ln",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
-               "wv": ("attn", "wv"), "wo": ("attn", "wo")}
-_RWKV6_KEYS = {          # RWKV6Layer sub-module -> its JAX leaves
-    "tm": ("mix", "wr", "wk", "wv", "wg", "wo", "decay_lora_a",
-           "decay_lora_b", "decay_base", "bonus_u", "ln_out"),
-    "cm": ("mix", "wk", "wv", "wr"),
-}
+#: module lists whose entries the JAX tree stacks along a leading layer axis
+STACKED = ("layers", "enc_layers", "cross_layers")
+#: an attention or cross block's attribute -> its group in the JAX tree
+_BLOCK_GROUP = {name: "attn" for name in ("wq", "wk", "wv", "wo", "bq", "bk",
+                                          "bv")}
+_BLOCK_GROUP.update({name: "mlp" for name in ("w_in", "w_out", "b_in",
+                                              "b_out")})
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -58,6 +57,74 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return init_lm_params(cfg, gen, dtype=dtype, device=dev)
+
+
+def abstract_params(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16):
+    """The family's LM on the ``meta`` device: every parameter's shape and
+    dtype, no storage (the JAX package's ``eval_shape`` tree)."""
+    return lm_class(cfg)(cfg, dtype, torch.device("meta"))
+
+
+def jax_path(name: str) -> tuple[tuple[str, ...], Optional[int]]:
+    """A parameter's path in the JAX tree and its layer index (``None``
+    outside the stacked lists): ``layers.3.wq`` -> ``(("layers", "attn",
+    "wq"), 3)``, ``shared_attn.w_in`` -> ``(("shared_attn", "mlp",
+    "w_in"), None)``, ``layers.0.tm.ln_out.bias`` -> ``(("layers", "tm",
+    "ln_out", "bias"), 0)``."""
+    parts = name.split(".")
+    idx = None
+    if parts[0] in STACKED:
+        idx = int(parts[1])
+        parts = parts[:1] + parts[2:]
+    if len(parts) > 1 and parts[1] in _BLOCK_GROUP:
+        parts.insert(1, _BLOCK_GROUP[parts[1]])
+    return tuple(parts), idx
+
+
+def jax_leaves(names) -> dict[tuple, list[str]]:
+    """Parameter names grouped by the JAX leaf they make up: ``{path:
+    [name]}``, a stacked leaf's names in layer order."""
+    groups: dict[tuple, list] = {}
+    for name in names:
+        path, idx = jax_path(name)
+        groups.setdefault(path, []).append((-1 if idx is None else idx, name))
+    return {path: [n for _, n in sorted(items)]
+            for path, items in groups.items()}
+
+
+def jax_layout(named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors named as the LM's parameters (``named_parameters()``, or
+    AdamW's ``m``/``v``) -> the JAX package's nested tree, each stacked
+    list's leaves ``torch.stack``-ed in layer order."""
+    tree: dict = {}
+    for path, names in jax_leaves(named).items():
+        stacked = path[0] in STACKED
+        _put(tree, path, torch.stack([named[n] for n in names]) if stacked
+             else named[names[0]])
+    return tree
+
+
+def port_layout(tree: Mapping, names) -> dict[str, Any]:
+    """The inverse of :func:`jax_layout`: ``{name: leaf}`` for each of the
+    parameter ``names`` from the JAX tree (leaves of any array type).  A
+    stacked list is either the stacked layout or a list of per-layer
+    trees."""
+    out = {}
+    for name in names:
+        path, idx = jax_path(name)
+        sub = tree[path[0]]
+        if idx is not None and isinstance(sub, (list, tuple)):
+            sub, idx = sub[idx], None
+        for key in path[1:]:
+            sub = sub[key]
+        out[name] = sub if idx is None else sub[idx]
+    return out
+
+
+def _put(tree: dict, path: tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
 
 
 def params_from_numpy(tree: Mapping, cfg: ArchConfig,
@@ -79,74 +146,112 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
     """
     dev = resolve_device(device)
     dt = dtype or torch.from_numpy(np.array(tree["embed"][:1])).dtype
-
-    def tensor(a, to=None) -> torch.Tensor:
-        return torch.from_numpy(np.array(a)).to(device=dev, dtype=to or dt)
-
-    def leaf(sub, path, i=None):
-        for key in path:
-            sub = sub[key]
-        return sub if i is None else sub[i]
-
-    def load(module, name, sub, path, i=None, to=None):
-        """One parameter, or both of a LayerNorm's."""
-        target = getattr(module, name)
-        if isinstance(target, LayerNorm):
-            for part in ("scale", "bias"):
-                getattr(target, part).data = tensor(
-                    leaf(sub, path + (part,), i))
-        else:
-            target.data = tensor(leaf(sub, path, i), to)
-
-    def layer_trees(layers):
-        stacked = not isinstance(layers, (list, tuple))
-        return lambda i: (layers, i) if stacked else (layers[i], None)
-
     model = lm_class(cfg)(cfg, dt, dev)
-    load(model, "embed", tree, ("embed",))
-    load(model, "final_norm", tree, ("final_norm",))
-    if not cfg.tie_embeddings:
-        load(model, "unembed", tree, ("unembed",))
-
-    keys = dict(_BLOCK_KEYS)
-    if cfg.qkv_bias:
-        keys.update(_BIAS_KEYS)
-    if cfg.act == "gelu":
-        keys.update(_MLP_BIAS_KEYS)
-
-    def load_blocks(blocks, layers, block_keys=keys):
-        at = layer_trees(layers)
-        for i, block in enumerate(blocks):
-            sub, idx = at(i)
-            for name, path in block_keys.items():
-                load(block, name, sub, path, idx)
-
-    at = layer_trees(tree["layers"])
-    if cfg.family == "hybrid":
-        for i, layer in enumerate(model.layers):
-            sub, idx = at(i)
-            load(layer, "ln", sub, ("ln",), idx)
-            for name in _MAMBA_KEYS:
-                load(layer.mamba, name, sub, ("mamba", name), idx,
-                     torch.float32 if name in F32_PARAMS else None)
-        load_blocks([model.shared_attn], [tree["shared_attn"]])
-    elif cfg.family == "ssm":
-        for i, layer in enumerate(model.layers):
-            sub, idx = at(i)
-            for name in ("ln1", "ln2"):
-                load(layer, name, sub, (name,), idx)
-            for part, names in _RWKV6_KEYS.items():
-                for name in names:
-                    load(getattr(layer, part), name, sub, (part, name), idx,
-                         torch.float32 if name in RWKV6_F32_PARAMS else None)
-    else:
-        load_blocks(model.layers, tree["layers"])
-    if cfg.family == "audio":
-        load_blocks(model.enc_layers, tree["enc_layers"])
-        load_blocks(model.cross_layers, tree["cross_layers"], _CROSS_KEYS)
-        for name in ("enc_final_norm", "enc_pos", "dec_pos"):
-            load(model, name, tree, (name,))
+    named = dict(model.named_parameters())
+    leaves = port_layout(tree, named)
+    for name, p in named.items():
+        p.data = torch.from_numpy(np.array(leaves[name])).to(device=dev,
+                                                             dtype=p.dtype)
     return model
+
+
+def params_to_numpy(params) -> dict:
+    """The JAX package's parameter tree of ``params`` (the family's LM) in
+    its stacked-layer layout, as numpy arrays on the host: the inverse of
+    :func:`params_from_numpy`.  numpy has no bfloat16: a bf16 parameter
+    comes back widened to f32 (exactly)."""
+    tree = jax_layout({n: p.detach().cpu()
+                       for n, p in params.named_parameters()})
+
+    def to_numpy(sub):
+        if isinstance(sub, dict):
+            return {k: to_numpy(v) for k, v in sub.items()}
+        return (sub.float() if sub.dtype == torch.bfloat16 else sub).numpy()
+    return to_numpy(tree)
+
+
+# --------------------------------------------------------------------------
+# Training: forward, loss and inputs
+# --------------------------------------------------------------------------
+
+def forward_train(params, cfg: ArchConfig, batch: Mapping,
+                  remat: bool = True) -> torch.Tensor:
+    """Logits ``[B, S, V]`` (S counts a vlm batch's patch rows) on the
+    training route: every attention call site through ``mea_attention``
+    (the flash kernel has no backward) and, with ``remat``, each layer
+    under activation checkpointing."""
+    return forward(params, batch["tokens"],
+                   prefix_embeds=batch.get("patches"),
+                   encoder_frames=batch.get("frames"),
+                   differentiable=True, remat=remat)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: Mapping, remat: bool = True,
+            chunk_rows: Optional[int] = None):
+    """Next-token cross entropy; labels equal to ``IGNORE_LABEL`` are
+    masked.  Returns ``(loss, {"loss", "tokens"})``, as the JAX
+    ``loss_fn``; ``chunk_rows``: :func:`softmax_cross_entropy`'s."""
+    logits = forward_train(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.family == "vlm":  # logits cover [prefix + tokens]; labels tokens
+        logits = logits[:, -labels.shape[1]:]
+    mask = labels != IGNORE_LABEL
+    safe = torch.where(mask, labels, 0)
+    nll = softmax_cross_entropy(logits, safe, chunk_rows)
+    denom = mask.sum().clamp(min=1)
+    loss = (nll * mask).sum() / denom
+    return loss, {"loss": loss, "tokens": denom}
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                act_dtype: torch.dtype = torch.bfloat16
+                ) -> dict[str, torch.Tensor]:
+    """Batch inputs of a named shape (``configs.base.SHAPES``) as ``meta``
+    tensors: shapes and dtypes, never allocated."""
+    shp = SHAPES[shape_name]
+    B, S = shp["global_batch"], shp["seq_len"]
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    specs: dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        S -= cfg.frontend_tokens
+        specs["patches"] = spec((B, cfg.frontend_tokens, cfg.d_model),
+                                act_dtype)
+    elif cfg.family == "audio":
+        specs["frames"] = spec((B, cfg.encoder_seq_len, cfg.d_model),
+                               act_dtype)
+    specs["tokens"] = spec((B, S))
+    if shp["kind"] == "train":
+        specs["labels"] = spec((B, S))
+    return specs
+
+
+def synth_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
+                act_dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None) -> dict[str, torch.Tensor]:
+    """A small real batch for smoke runs, laid out as the JAX function's
+    (a vlm batch has ``min(frontend_tokens, seq // 2)`` patch rows ahead
+    of its tokens; labels are the tokens rolled left by one), drawn from
+    ``torch.Generator(seed)`` on the CPU: the values differ from
+    ``jax.random``'s."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    out: dict[str, torch.Tensor] = {}
+    n_tok = seq
+    if cfg.family == "vlm":
+        P = min(cfg.frontend_tokens, max(seq // 2, 1))
+        n_tok = seq - P
+        out["patches"] = torch.randn((batch, P, cfg.d_model), generator=gen)
+    elif cfg.family == "audio":
+        out["frames"] = torch.randn((batch, cfg.encoder_seq_len,
+                                     cfg.d_model), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, n_tok), generator=gen,
+                           dtype=torch.int32)
+    out = {k: v.to(act_dtype) for k, v in out.items()}
+    out["tokens"] = tokens
+    out["labels"] = torch.roll(tokens, -1, dims=1)
+    return {k: v.to(dev) for k, v in out.items()}
 
 
 def make_paged_config(

@@ -33,14 +33,24 @@ Attention goes through the flash kernel for CUDA tensors and through
 ``mea_attention`` -- the JAX package's own arithmetic, which keeps the CPU
 path within f32 rounding of it -- for CPU tensors (:func:`attention`).
 
-Serving holds the parameters without gradients.
+Serving holds the parameters without gradients.  The training forward
+(:func:`repro_torch.models.model_zoo.forward_train`) passes
+``differentiable=True``, which sends every attention call site (self, the
+whisper encoder, cross, the hybrid's shared block) to ``mea_attention`` on
+either device -- the function the JAX package trains through; the flash
+kernel is forward-only -- and ``remat=True``, which runs each layer under
+``torch.utils.checkpoint`` as the JAX package wraps each scanned layer in
+``jax.checkpoint`` (whisper's encoder layers are not rematted there
+either).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention_op
@@ -62,17 +72,26 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, differentiable: bool = False
+              ) -> torch.Tensor:
     """``[B, Tq, H, hd]`` attention at one call site: the flash kernel for
-    CUDA tensors, ``mea_attention`` for CPU tensors.  ``window=None`` is
-    no window."""
-    if q.device.type == "cuda":
+    CUDA tensors, ``mea_attention`` for CPU tensors and, with
+    ``differentiable``, on either device (the kernel has no backward).
+    ``window=None`` is no window."""
+    if q.device.type == "cuda" and not differentiable:
         return flash_attention_op(
             q, k, v, causal=causal,
             window=FULL_WINDOW if window is None else window,
             q_offset=q_offset)
     return mea_attention(q, k, v, causal=causal, window=window,
                          q_offset=q_offset)
+
+
+def _run_block(remat: bool, fn, x: torch.Tensor):
+    """``fn(x)``; with ``remat`` under activation checkpointing, so that the
+    backward recomputes the block from ``x`` (``fn`` binds its layer by
+    value: the recomputation runs after the loop has moved on)."""
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
 
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
@@ -184,9 +203,12 @@ class DenseLM(_LM):
             AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                prefix_kv=None, pos_offset: int = 0, prefix_embeds=None):
+                prefix_kv=None, pos_offset: int = 0, prefix_embeds=None,
+                differentiable: bool = False, remat: bool = False):
         """Full-sequence logits ``[B, S, V]``; with ``return_kv`` also the
         per-layer ``(k, v)``, each ``[num_layers, B, S, KV, hd]``.
+        ``differentiable`` and ``remat``: the training forward (module
+        docstring).
 
         ``prefix_embeds [B, P, d]`` (vlm): patch embeddings that take
         positions ``[0, P)`` ahead of the tokens; S then counts them too.
@@ -209,8 +231,10 @@ class DenseLM(_LM):
                                               layer_windows(self.cfg))):
             pkv = None if prefix_kv is None \
                 else (prefix_kv[0][li], prefix_kv[1][li])
-            x, (k, v) = _attn_block_seq(self.cfg, lp, x, window,
-                                        q_offset=pos_offset, prefix_kv=pkv)
+            x, (k, v) = _run_block(remat, partial(
+                _attn_block_seq, self.cfg, lp, window=window,
+                q_offset=pos_offset, prefix_kv=pkv,
+                differentiable=differentiable), x)
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -263,7 +287,8 @@ class HybridLM(_LM):
         self.shared_attn = AttnBlock(cfg, dtype, device, gen)
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                prefix_kv=None, pos_offset: int = 0):
+                prefix_kv=None, pos_offset: int = 0,
+                differentiable: bool = False, remat: bool = False):
         """Full-sequence logits ``[B, S, V]``; with ``return_kv`` also the
         shared block's ``(k, v)`` of each application, each ``[L_kv, B, S,
         KV, hd]``.  A recurrent state has no prefix cache: ``prefix_kv``
@@ -271,7 +296,7 @@ class HybridLM(_LM):
         if prefix_kv is not None or pos_offset:
             raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
                              "plain attention families (family='hybrid')")
-        x, kv, _ = self._run(tokens)
+        x, kv, _ = self._run(tokens, differentiable, remat)
         logits = self.logits(x)
         return (logits, kv) if return_kv else logits
 
@@ -283,27 +308,42 @@ class HybridLM(_LM):
         _, kv, states = self._run(tokens)
         return kv, states
 
-    def _run(self, tokens: torch.Tensor):
+    def _run(self, tokens: torch.Tensor, differentiable: bool = False,
+             remat: bool = False):
         x = self.embed[tokens.long()]
         ks, vs, ssms, convs = [], [], [], []
         for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
-            y, ssm, conv = m2.mamba2_forward_with_state(
-                layer.mamba, self.spec, apply_norm(self.cfg.norm, layer.ln, x))
-            x = x + y
+            x, kv, ssm, conv = _run_block(remat, partial(
+                _hybrid_layer, self.cfg, self.spec, layer,
+                self.shared_attn if flag else None,
+                differentiable=differentiable), x)
             ssms.append(ssm)
             convs.append(conv)
             if flag:
-                x, (k, v) = _attn_block_seq(self.cfg, self.shared_attn, x,
-                                            FULL_WINDOW)
-                ks.append(k)
-                vs.append(v)
+                ks.append(kv[0])
+                vs.append(kv[1])
         return (x, (torch.stack(ks), torch.stack(vs)),
                 (torch.stack(ssms), torch.stack(convs)))
 
 
+def _hybrid_layer(cfg: ArchConfig, spec: m2.Mamba2Spec, layer: HybridLayer,
+                  shared: Optional[AttnBlock], x: torch.Tensor,
+                  differentiable: bool = False):
+    """One hybrid layer: the Mamba2 block, then the shared attention block
+    where ``shared`` is given; ``(x, (k, v) or None, ssm, conv)``."""
+    y, ssm, conv = m2.mamba2_forward_with_state(
+        layer.mamba, spec, apply_norm(cfg.norm, layer.ln, x))
+    x = x + y
+    kv = None
+    if shared is not None:
+        x, kv = _attn_block_seq(cfg, shared, x, FULL_WINDOW,
+                                differentiable=differentiable)
+    return x, kv, ssm, conv
+
+
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
                     window: int, q_offset: int = 0, prefix_kv=None,
-                    causal: bool = True):
+                    causal: bool = True, differentiable: bool = False):
     """One block over a full sequence; returns ``(x, (k, v))``.
 
     The sequence sits at absolute positions ``[q_offset, q_offset + T)``
@@ -312,7 +352,7 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     cached keys of positions ``[0, P)`` with ``P == q_offset``, which the
     queries attend over before their own.  The returned ``(k, v)`` cover
     the sequence alone.  ``causal=False`` is whisper's bidirectional
-    encoder block."""
+    encoder block.  ``differentiable``: :func:`attention`'s."""
     hd = cfg.resolved_head_dim
     h = apply_norm(cfg.norm, lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
@@ -328,7 +368,8 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     else:
         k_all, v_all = k, v
     attn = attention(q, k_all, v_all, causal=causal,
-                     window=window if causal else None, q_offset=q_offset)
+                     window=window if causal else None, q_offset=q_offset,
+                     differentiable=differentiable)
     x = x + out_project(lp.wo, attn)
     return mlp_residual(cfg, lp, x), (k, v)
 
@@ -361,15 +402,17 @@ class RWKV6LM(_LM):
             for _ in range(cfg.num_layers))
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                prefix_kv=None, pos_offset: int = 0):
+                prefix_kv=None, pos_offset: int = 0,
+                differentiable: bool = False, remat: bool = False):
         """Full-sequence logits ``[B, S, V]``.  The family has no K/V and
         no prefix cache: ``return_kv``, ``prefix_kv`` and ``pos_offset``
-        raise."""
+        raise.  It has no attention either: ``differentiable`` changes
+        nothing."""
         if return_kv or prefix_kv is not None or pos_offset:
             raise ValueError("rwkv6 has no K/V: no return_kv and no "
                              "prefix_kv/pos_offset prefill-skip "
                              "(family='ssm')")
-        return self.logits(self._run(tokens)[0])
+        return self.logits(self._run(tokens, remat)[0])
 
     def prefill(self, tokens: torch.Tensor):
         """The serving prefill's outputs, without the vocab projection: the
@@ -378,19 +421,27 @@ class RWKV6LM(_LM):
         normalised input)."""
         return self._run(tokens)[1]
 
-    def _run(self, tokens: torch.Tensor):
+    def _run(self, tokens: torch.Tensor, remat: bool = False):
         x = self.embed[tokens.long()]
         wkvs, tms, cms = [], [], []
         for layer in self.layers:
-            tm_in = apply_norm("layernorm", layer.ln1, x)
-            y, wkv = rw.rwkv6_time_mix(layer.tm, self.spec, tm_in)
-            x = x + y
-            cm_in = apply_norm("layernorm", layer.ln2, x)
-            x = x + rw.rwkv6_channel_mix(layer.cm, cm_in)
+            x, wkv, tm_last, cm_last = _run_block(
+                remat, partial(_rwkv6_layer, self.spec, layer), x)
             wkvs.append(wkv)
-            tms.append(tm_in[:, -1:])
-            cms.append(cm_in[:, -1:])
+            tms.append(tm_last)
+            cms.append(cm_last)
         return x, (torch.stack(wkvs), torch.stack(tms), torch.stack(cms))
+
+
+def _rwkv6_layer(spec: rw.RWKV6Spec, layer: RWKV6Layer, x: torch.Tensor):
+    """One RWKV6 layer: ``(x, wkv, tm_prev, cm_prev)`` (each mix's last
+    normalised input)."""
+    tm_in = apply_norm("layernorm", layer.ln1, x)
+    y, wkv = rw.rwkv6_time_mix(layer.tm, spec, tm_in)
+    x = x + y
+    cm_in = apply_norm("layernorm", layer.ln2, x)
+    x = x + rw.rwkv6_channel_mix(layer.cm, cm_in)
+    return x, wkv, tm_in[:, -1:], cm_in[:, -1:]
 
 
 class CrossBlock(nn.Module):
@@ -425,14 +476,16 @@ def cross_kv(cfg: ArchConfig, cp: CrossBlock, enc_out: torch.Tensor):
 
 
 def cross_residual(cfg: ArchConfig, cp: CrossBlock, x: torch.Tensor,
-                   enc_out: torch.Tensor) -> torch.Tensor:
+                   enc_out: torch.Tensor, differentiable: bool = False
+                   ) -> torch.Tensor:
     """``x [B, T, d]`` plus its non-causal attention over ``enc_out [B,
-    F, d]``."""
+    F, d]``.  ``differentiable``: :func:`attention`'s."""
     h = apply_norm(cfg.norm, cp.ln, x)
     q = (h @ cp.wq).reshape(*h.shape[:-1], cfg.num_heads,
                             cfg.resolved_head_dim)
     k, v = cross_kv(cfg, cp, enc_out)
-    return x + out_project(cp.wo, attention(q, k, v, causal=False))
+    return x + out_project(cp.wo, attention(q, k, v, causal=False,
+                                            differentiable=differentiable))
 
 
 class WhisperLM(_LM):
@@ -463,16 +516,19 @@ class WhisperLM(_LM):
             else torch.empty((n, d), dtype=dtype, device=device))
             for n in (cfg.encoder_seq_len, DEC_POS_ROWS))
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, differentiable: bool = False
+               ) -> torch.Tensor:
         """``frames [B, F, d]`` (the stub frontend's output) -> the encoder
         output ``[B, F, d]``."""
         x = frames + self.enc_pos[:frames.shape[1]].to(frames.dtype)
         for lp in self.enc_layers:
-            x, _ = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW, causal=False)
+            x, _ = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW, causal=False,
+                                   differentiable=differentiable)
         return apply_norm(self.cfg.norm, self.enc_final_norm, x)
 
     def forward(self, tokens: torch.Tensor, return_kv: bool = False,
-                prefix_kv=None, pos_offset: int = 0, encoder_frames=None):
+                prefix_kv=None, pos_offset: int = 0, encoder_frames=None,
+                differentiable: bool = False, remat: bool = False):
         """Full-sequence logits ``[B, S, V]`` of ``tokens`` over
         ``encoder_frames [B, F, d]``; with ``return_kv`` also the decoder's
         per-layer ``(k, v)``, each ``[L, B, S, KV, hd]``.  No prefix cache:
@@ -481,7 +537,9 @@ class WhisperLM(_LM):
             raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
                              "plain attention families without vlm/encoder "
                              "prefixes (family='audio')")
-        logits, kv = self._decode(tokens, self.encode(encoder_frames))
+        logits, kv = self._decode(
+            tokens, self.encode(encoder_frames, differentiable),
+            differentiable, remat)
         return (logits, kv) if return_kv else logits
 
     def prefill(self, tokens: torch.Tensor, frames: torch.Tensor):
@@ -491,16 +549,27 @@ class WhisperLM(_LM):
         logits, kv = self._decode(tokens, enc_out)
         return logits, kv, enc_out
 
-    def _decode(self, tokens: torch.Tensor, enc_out: torch.Tensor):
+    def _decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
+                differentiable: bool = False, remat: bool = False):
         x = self.embed[tokens.long()]
         x = x + self.dec_pos[:x.shape[1]].to(x.dtype)
         ks, vs = [], []
         for lp, cp in zip(self.layers, self.cross_layers):
-            x, (k, v) = _attn_block_seq(self.cfg, lp, x, FULL_WINDOW)
-            x = cross_residual(self.cfg, cp, x, enc_out)
+            x, (k, v) = _run_block(remat, partial(
+                _whisper_decoder_layer, self.cfg, lp, cp, enc_out=enc_out,
+                differentiable=differentiable), x)
             ks.append(k)
             vs.append(v)
         return self.logits(x), (torch.stack(ks), torch.stack(vs))
+
+
+def _whisper_decoder_layer(cfg: ArchConfig, lp: AttnBlock, cp: CrossBlock,
+                           x: torch.Tensor, enc_out: torch.Tensor,
+                           differentiable: bool = False):
+    """One decoder layer with its cross block: ``(x, (k, v))``."""
+    x, kv = _attn_block_seq(cfg, lp, x, FULL_WINDOW,
+                            differentiable=differentiable)
+    return cross_residual(cfg, cp, x, enc_out, differentiable), kv
 
 
 def lm_class(cfg: ArchConfig) -> type:
@@ -518,13 +587,17 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
 
 def forward(params: _LM, tokens: torch.Tensor, return_kv: bool = False,
             prefix_kv=None, pos_offset: int = 0, prefix_embeds=None,
-            encoder_frames=None):
+            encoder_frames=None, differentiable: bool = False,
+            remat: bool = False):
     """Full-sequence logits (and per-layer K/V with ``return_kv``); see
     :meth:`DenseLM.forward` for the cached prefix and the vlm patch
     prefix (``prefix_embeds``, which only the dense and vlm families
-    take) and :meth:`WhisperLM.forward` for ``encoder_frames``."""
+    take) and :meth:`WhisperLM.forward` for ``encoder_frames``.
+    ``differentiable`` and ``remat`` make it the training forward (module
+    docstring)."""
     extra = {} if prefix_embeds is None else {"prefix_embeds": prefix_embeds}
     if encoder_frames is not None:
         extra["encoder_frames"] = encoder_frames
     return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
-                  pos_offset=pos_offset, **extra)
+                  pos_offset=pos_offset, differentiable=differentiable,
+                  remat=remat, **extra)

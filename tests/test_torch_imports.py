@@ -9,7 +9,7 @@
   yardstick.
 * No module of ``src/repro_torch`` reads an environment variable.
 * Without a card, an entry point called without ``device="cpu"`` raises
-  instead of falling back to the CPU; both launchers print ``--help``.
+  instead of falling back to the CPU; the launchers print ``--help``.
 * The kernel wrapper on CPU tensors runs the plain version and leaves its
   launch counter at 0.
 """
@@ -97,13 +97,16 @@ def test_port_has_its_modules():
                 "alloc/eviction.py", "loadgen/__init__.py",
                 "loadgen/arrivals.py", "loadgen/workload.py",
                 "loadgen/driver.py", "loadgen/trace.py",
-                "launch/replay.py"):
+                "launch/replay.py", "data/pipeline.py", "models/losses.py",
+                "train/optimizer.py", "distributed/compression.py",
+                "train/train_step.py", "distributed/checkpoint.py",
+                "train/trainer.py", "launch/train.py"):
         assert mod in names, mod
 
 
-@pytest.mark.parametrize("launcher", ["serve", "replay"])
+@pytest.mark.parametrize("launcher", ["serve", "replay", "train"])
 def test_launchers_print_help(launcher):
-    """Both launchers parse ``--help`` (and exit 0) on a host without a
+    """The launchers parse ``--help`` (and exit 0) on a host without a
     card, through ``python -m`` as a user runs them."""
     import subprocess
     import sys
@@ -116,7 +119,9 @@ def test_launchers_print_help(launcher):
     for flag in {"serve": ("--alloc-policy", "--loadgen", "--rate",
                            "--priority-frac", "--shared-prefix-frac",
                            "--record-trace", "--max-windows"),
-                 "replay": ("--policy", "--device")}[launcher]:
+                 "replay": ("--policy", "--device"),
+                 "train": ("--device", "--steps", "--grad-accum",
+                           "--checkpoint-dir", "--smoke")}[launcher]:
         assert flag in res.stdout, flag
 
 
@@ -164,6 +169,14 @@ def test_entry_points_raise_without_card(tmp_path):
     save_trace(trace, tmp_path / "t.trc")
     with pytest.raises(RuntimeError, match="CUDA"):
         replay_main([str(tmp_path / "t.trc")])
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--arch", "gemma3-1b", "--smoke", "--steps", "1",
+                    "--checkpoint-dir", str(tmp_path / "ck")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, TrainerConfig(checkpoint_dir=str(tmp_path / "ck")))
+    assert not (tmp_path / "ck").exists()
 
 
 def test_kernel_wrapper_on_cpu_uses_plain_version():
