@@ -6,7 +6,7 @@
 Phases, each failing loudly (non-zero exit, no result line):
 
 1.  card     -- the card's name and power limit, torch and CUDA versions;
-2.  build    -- compile the three CUDA kernels from the checkout's sources
+2.  build    -- compile the four CUDA kernels from the checkout's sources
                (one ``nvcc`` each, ``sm_90a``, started together), print
                each build time and every kernel's ``-Xptxas -v`` lines
                (registers, shared memory, spills); the support-core kernel
@@ -183,9 +183,23 @@ Phases, each failing loudly (non-zero exit, no result line):
                the card and saved again, gives the same files, its bf16
                leaves bit for bit; phase 6 prints one JSON line of its
                numbers;
-7.  result   -- the card's line again, one JSON line describing the
+7.  sim      -- the allocator simulator (``repro_torch.sim``): the
+               ``sim_trace`` kernel against its plain loop, all nine
+               counts bit for bit, for every policy of ``ALL_POLICIES``
+               on every paper workload at its own thread count and at 16
+               (324 traces of 4096 events), on the empty trace and at
+               4096 threads (the state in device memory); 2**24 + 8
+               mallocs on the kernel alone must read 16777216.0 (float32
+               saturation); ``calibration_table(16)`` and phase 4d's
+               tracefile through ``replay_sim_policies`` for all nine
+               policies, card equal to cpu, each trace of that main path
+               one kernel launch; prints the kernel's time per trace
+               beside the launch floor and the plain loop's host time,
+               both ``calibration_table`` wall times and the card's line;
+8.  result   -- the card's line again, one JSON line describing the
                kernels (each kernel's launches also counted over the
-               training runs of 6b and 6c: none), then the last line
+               training runs of 6b and 6c: none; the sim kernel's over
+               phase 7's main path), then the last line
                ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -2975,6 +2989,177 @@ def train_preempted(dev) -> dict:
                 launches=launches)
 
 
+# --------------------------------------------------------------------------
+# phase 7, the allocator simulator: its trace kernel against the plain loop
+# --------------------------------------------------------------------------
+
+SIM = dict(threads=16, events=4096, saturate=(1 << 24) + 8, global_threads=4096,
+           timed=("tcmalloc", "speedmalloc", "mallacc", "speedmalloc-stash"))
+
+
+def sim_bound_ms(E: int) -> tuple[float, str]:
+    """Least time for one trace: the four int32 event rows read once and
+    the 9-word result written once over HBM bandwidth, against ~25
+    operations an event (the tier logic, three state writes, the byte
+    sums, seven counter adds) over the CUDA cores' rate; the larger one."""
+    bytes_ms = 4 * (4 * E + 9) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 25 * E / CUDA_CORE_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def sim_counts_equal(got, want) -> bool:
+    """Every field of two ``SimCounts`` equal bit for bit."""
+    a = torch.stack(list(got)).cpu().view(torch.int32)
+    b = torch.stack(list(want)).cpu().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def sim_phase(dev, floor_ms: float, trace_path: Path) -> dict:
+    """Phase 7: the ``sim_trace`` kernel against its plain version, all
+    nine counts bit for bit, for every policy of ``ALL_POLICIES`` on every
+    paper workload at its own thread count and at 16 (324 traces of 4096
+    events), on the empty trace and, on the global-memory path, at 4096
+    threads; the float32 counters' saturation past 2**24 events (kernel
+    alone); then the main path -- ``calibration_table(16)`` and the
+    recorded open-loop trace through ``replay_sim_policies`` for all nine
+    policies -- on the card, each equal to the same call on the CPU, with
+    the kernel's launches counted over it."""
+    from repro_torch.kernels.sim_trace.ops import KERNEL, card_path, sim_trace
+    from repro_torch.kernels.sim_trace.ref import run_trace_plain
+    from repro_torch.loadgen import load_trace, replay_sim_policies
+    from repro_torch.sim import engine
+    from repro_torch.sim.costmodel import calibration_table
+    from repro_torch.sim.policies import ALL_POLICIES
+    from repro_torch.sim.workloads import (MULTI_THREADED, SIZE_CLASS_BYTES,
+                                           SINGLE_THREADED, make_trace)
+    sizes = [int(s) for s in SIZE_CLASS_BYTES]
+    sizes_dev = torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+    def check(ev, T, what):
+        ev_dev = torch.from_numpy(ev).to(dev)
+        for name, pol in ALL_POLICIES.items():
+            got = sim_trace(ev_dev, T, pol, sizes_dev)
+            want = run_trace_plain(ev, T, pol, sizes)
+            if not sim_counts_equal(got, want):
+                fail(f"7: sim_trace {what} T={T} under {name}: "
+                     f"{[float(x) for x in got]} != plain "
+                     f"{[float(x) for x in want]}")
+        return len(ALL_POLICIES)
+
+    t0 = time.perf_counter()
+    traces = 0
+    for spec in (*MULTI_THREADED.values(), *SINGLE_THREADED.values()):
+        for T in (spec.threads, SIM["threads"]):
+            ev = engine._events(make_trace(spec, SIM["events"], T), T)
+            traces += check(ev, T, spec.name)
+    paper = traces
+    traces += check(np.zeros((4, 0), np.int32), SIM["threads"], "empty trace")
+    Tg = SIM["global_threads"]
+    if card_path(Tg, len(sizes)) != "global" or \
+            card_path(SIM["threads"], len(sizes)) != "shared":
+        fail("7: sim_trace's state paths are not shared at T=16 and global "
+             f"at T={Tg}")
+    ev = engine._events(make_trace(MULTI_THREADED["larson"], SIM["events"],
+                                   Tg), Tg)
+    traces += check(ev, Tg, "larson (global path)")
+    print(f"  sim_trace == plain, all nine counts bit for bit: {traces} "
+          f"traces ({paper} of 4096 events at the workloads' own threads "
+          f"and 16, shared-memory state; the empty trace and larson at "
+          f"T={Tg} on the global path under each policy) in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    n = SIM["saturate"]
+    sat = torch.zeros((4, n), dtype=torch.int32, device=dev)
+    sat[1] = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnt = engine.host_counts(sim_trace(sat, 1, ALL_POLICIES["speedmalloc"],
+                                       sizes_dev))
+    sat_s = time.perf_counter() - t0
+    if float(cnt.mallocs) != min(n, 1 << 24) or float(cnt.frees) != 0.0 \
+            or float(cnt.peak_bytes) != float(np.float32(n * sizes[0])):
+        fail(f"7: {n} mallocs under speedmalloc read {cnt}, expected "
+             f"mallocs == {min(n, 1 << 24)} (float32 saturation at 2**24)")
+    print(f"  {n} mallocs on thread 0, class 0, under speedmalloc: mallocs "
+          f"== {float(cnt.mallocs):.1f} (float32 saturation), peak bytes "
+          f"{float(cnt.peak_bytes):.0f}; {sat_s:.3f}s on the card, "
+          f"{sat_s / n * 1e9:.1f} ns an event")
+    del sat
+
+    timed = {}
+    ev = engine._events(make_trace(MULTI_THREADED["larson"], SIM["events"],
+                                   SIM["threads"]), SIM["threads"])
+    ev_dev = torch.from_numpy(ev).to(dev)
+    bound_ms, bound_by = sim_bound_ms(ev.shape[1])
+    for name in SIM["timed"]:
+        pol = ALL_POLICIES[name]
+        ms = device_ms(lambda: sim_trace(ev_dev, SIM["threads"], pol,
+                                         sizes_dev), n=50)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run_trace_plain(ev, SIM["threads"], pol, sizes)
+        plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+        timed[name] = dict(E=ev.shape[1], T=SIM["threads"], ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           ns_per_event=ms * 1e6 / ev.shape[1])
+        print(f"  time sim_trace larson T={SIM['threads']} E={ev.shape[1]} "
+              f"under {name}: kernel {ms * 1e3:.2f} us/trace "
+              f"({ms * 1e6 / ev.shape[1]:.1f} ns an event; launch floor "
+              f"{floor_ms * 1e3:.2f} us), plain loop on the host "
+              f"{plain_ms:.2f} ms, bound {bound_ms * 1e3:.4f} us "
+              f"({bound_by})")
+
+    walls = {}
+    tables = {}
+    for where in ("cpu", "cuda"):
+        engine._cached_counts.cache_clear()
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        tables[where] = calibration_table(SIM["threads"], device=where)
+        walls[where] = time.perf_counter() - t0
+        if where == "cuda":
+            calib_launches = KERNEL.launches
+    if tables["cuda"] != tables["cpu"]:
+        fail("7: calibration_table(16) differs between the card and the cpu")
+    trace = load_trace(trace_path)
+    names = list(ALL_POLICIES)
+    t0 = time.perf_counter()
+    KERNEL.launches = 0
+    swept = replay_sim_policies(trace, names, device=dev)
+    sweep_launches = KERNEL.launches
+    sweep_s = time.perf_counter() - t0
+    if swept != replay_sim_policies(trace, names, device="cpu"):
+        fail("7: replay_sim_policies of the recorded trace differs between "
+             "the card and the cpu")
+    launches = calib_launches + sweep_launches
+    want = 7 * len(MULTI_THREADED) + len(names)
+    if launches != want:
+        fail(f"7: sim_trace launches on the main path {launches} != "
+             f"{want} traces run on the card")
+    geo = tables["cuda"]["geomean"]
+    print(f"  calibration_table(16): card {walls['cuda']:.3f}s, cpu "
+          f"{walls['cpu']:.3f}s, equal; geomean speedups over jemalloc "
+          + ", ".join(f"{k} {v:.4f}" for k, v in geo.items()))
+    print(f"  replay_sim_policies of {trace_path.name} ({trace.bursts} "
+          f"bursts), nine policies: card == cpu, {sweep_s * 1e3:.1f} ms on "
+          f"the card; sim_trace launches on the main path {launches} "
+          f"(= {calib_launches} calibration traces + {sweep_launches})")
+    print(card_line())
+    head = timed["tcmalloc"]
+    return dict(launches=launches, parity_traces=traces, max_abs_err=0.0,
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "ns_per_event")},
+                other_policies={k: v for k, v in timed.items()
+                                if k != "tcmalloc"},
+                saturation=dict(events=n, mallocs=float(cnt.mallocs),
+                                seconds=sat_s),
+                calibration_wall_s=walls, calibration_geomean=geo,
+                replay_sweep=dict(policies=len(names), wall_s=sweep_s,
+                                  launches=sweep_launches))
+
+
 def kernel_signature(name: str) -> str:
     """A demangled kernel name without its return type, namespaces and
     parameter list: ``flash_mma_kernel<(int)256>``."""
@@ -3038,6 +3223,7 @@ def main() -> None:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.flash_attention.ops import FLASH_KERNEL
     from repro_torch.kernels.paged_attention.ops import PAGED_KERNEL
+    from repro_torch.kernels.sim_trace.ops import KERNEL as SIM_KERNEL
     from repro_torch.kernels.support_core.ops import KERNEL
 
     print("== 1. card")
@@ -3048,7 +3234,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     print("== 2. build")
-    kernels = (KERNEL, PAGED_KERNEL, FLASH_KERNEL)
+    kernels = (KERNEL, PAGED_KERNEL, FLASH_KERNEL, SIM_KERNEL)
     build_all(kernels)
     for k in kernels:
         print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
@@ -3189,7 +3375,12 @@ def main() -> None:
     print(json.dumps({"train": {"card_vs_cpu": trained, "full_width": full,
                                 "preempted": preempt}}))
 
-    print("== 7. result")
+    print("== 7. sim: the allocator simulator's trace kernel against its "
+          "plain loop; calibration_table(16) and the open loop's trace "
+          "through every sim policy, card against cpu")
+    sim = sim_phase(dev, floor_ms, TRACE_PATH)
+
+    print("== 8. result")
     print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):
@@ -3245,6 +3436,15 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/flash_attention.py:83",
              **launches("flash_attention"), max_abs_err=errs.max["flash"],
              **timed(t_flash, "deepseek-7b")),
+        dict(name="sim_trace", route="cuda",
+             source="src/repro_torch/kernels/sim_trace/csrc/sim_trace.cu",
+             replaces="src/repro/sim/engine.py:50",
+             **{k: sim[k] for k in ("launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None, launch_floor_ms=floor_ms,
+             **{k: v for k, v in sim.items() if k not in (
+                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by")}),
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -458,3 +458,20 @@ class AllocService:
         full = fragmentation_report(state, tenant_names=self.tenant_names())
         return {t.name: full[t.name]
                 for t in (self.tenants if tenants is None else tenants)}
+
+
+def empty_burst_stats(num_classes: int, used: Optional[torch.Tensor] = None,
+                      device: DeviceLike = "cpu") -> BurstStats:
+    """All-zero :class:`BurstStats` for code paths that issue no burst,
+    shaped like a real one; ``used`` (``[C]``) fills the occupancy row and
+    names the device, else ``device`` does."""
+    dev = used.device if used is not None else torch.device(device)
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    zc = torch.zeros((num_classes,), dtype=torch.int32, device=dev)
+    return BurstStats(
+        core=StepStats(z, z, z, z, z),
+        per_tenant=TenantStats(zc, zc, zc, zc,
+                               used if used is not None else zc),
+        queue_live=z,
+        queue_capacity=z,
+    )

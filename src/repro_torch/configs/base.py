@@ -114,6 +114,11 @@ def get_config(arch_id: str) -> ArchConfig:
     return _REGISTRY[arch_id]
 
 
+def all_configs() -> dict[str, ArchConfig]:
+    """Every arch the port can build, by id (:data:`ARCH_IDS`)."""
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 def smoke_config(arch_id: str) -> ArchConfig:
     """A reduced same-family config for CPU smoke tests (the JAX package's
     reduction, field for field)."""

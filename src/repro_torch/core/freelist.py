@@ -63,6 +63,11 @@ class FreeListState(NamedTuple):
         return "\n".join(lines)
 
 
+def num_free(state: FreeListState) -> torch.Tensor:
+    """Free blocks per class, shape ``[C]``."""
+    return state.free_top
+
+
 def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from .packets import OP_FREE, OP_NOP, OP_REFILL, RequestQueue
+from .packets import (OP_FREE, OP_MALLOC, OP_MALLOC_RUN, OP_NOP, OP_REFILL,
+                      RequestQueue)
 
 
 def round_robin_rank(lane: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -33,6 +34,16 @@ def round_robin_rank(lane: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     group_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
     rank = torch.empty_like(idx).scatter_(0, order, idx - group_start)
     return torch.where(valid, rank, 0).to(torch.int32)
+
+
+def max_safe_lanes(q: int) -> int:
+    """Largest lane-id count for which the JAX package's fused int32 sort
+    key ``(prio * (q+1) + rr) * (lanes+1) + lane`` cannot overflow
+    (``prio <= 3``, ``rr <= q``): ``lanes + 1 <= (2**31 - 1) // (4 * (q +
+    1))``.  The port's key is int64, so its :func:`schedule` is exact past
+    this bound too; the bound says where the JAX package switches to its
+    lexicographic sort."""
+    return max((2**31 - 1) // (4 * (q + 1)) - 1, 0)
 
 
 def schedule(queue: RequestQueue) -> tuple[RequestQueue, torch.Tensor]:
@@ -62,3 +73,17 @@ def schedule(queue: RequestQueue) -> tuple[RequestQueue, torch.Tensor]:
     unperm = torch.empty_like(perm).scatter_(
         0, perm, torch.arange(q, device=perm.device))
     return sched, unperm
+
+
+def queue_occupancy(queue: RequestQueue) -> dict[str, torch.Tensor]:
+    """Occupancy statistics (int32 scalars): live slots, and mallocs (with
+    ``OP_MALLOC_RUN``, a malloc with a contiguity hint), refills and
+    frees."""
+    def count(mask):
+        return mask.sum().to(torch.int32)
+    return {
+        "total": count(queue.op != OP_NOP),
+        "malloc": count((queue.op == OP_MALLOC) | (queue.op == OP_MALLOC_RUN)),
+        "refill": count(queue.op == OP_REFILL),
+        "free": count(queue.op == OP_FREE),
+    }

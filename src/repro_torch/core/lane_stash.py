@@ -94,6 +94,20 @@ def stash_pop(stash: LaneStashState, want: torch.Tensor
     return LaneStashState(new_pages, stash.depth - got.to(I32)), pages, got
 
 
+def stash_push(stash: LaneStashState, pages: torch.Tensor, want: torch.Tensor
+               ) -> tuple[LaneStashState, torch.Tensor]:
+    """Push one page per wanting lane where there is room: ``(stash,
+    pushed)``.  ``want & ~pushed`` lanes must route their page to the
+    central free list instead (overflow flush)."""
+    L, S = stash.pages.shape
+    lane_ids = torch.arange(L, dtype=I32, device=want.device)
+    pushed = want & (stash.depth < S)
+    slot = stash.depth.clamp(0, S - 1)
+    new_pages = set_drop(stash.pages, (torch.where(pushed, lane_ids, L), slot),
+                         pages)
+    return LaneStashState(new_pages, stash.depth + pushed.to(I32)), pushed
+
+
 def stash_push_batch(stash: LaneStashState, blocks: torch.Tensor,
                      count: int, want: torch.Tensor) -> LaneStashState:
     """Append ``blocks[l, :count]`` to each wanting lane's stash (bulk

@@ -52,6 +52,13 @@ class ResponseQueue(NamedTuple):
     status: torch.Tensor   # [Q] int32
 
 
+def empty_queue(capacity: int, device: torch.device | str = "cpu"
+                ) -> RequestQueue:
+    """An all-nop request queue of the given capacity."""
+    z = torch.zeros((capacity,), dtype=torch.int32, device=device)
+    return RequestQueue(op=z, lane=z, size_class=z, arg=z)
+
+
 def make_queue(ops, lanes, size_classes, args, capacity: int | None = None,
                device: torch.device | str = "cpu") -> RequestQueue:
     """Build a queue from python/array slot lists, padding with nops."""

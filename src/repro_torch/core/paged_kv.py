@@ -146,16 +146,35 @@ def register_paged_tenants(svc: AllocService, cfg: PagedKVConfig,
     (``kv_pages``, then ``state_slots`` and ``scratch`` where configured),
     optionally namespaced: each shard of a multi-engine deployment calls
     this once on the one shared service before ``init_state``."""
+    by_base = {t.base_name: t for t in svc.register_tenants(
+        _tenant_spec(cfg), namespace=namespace)}
+    return PagedTenants(service=svc, kv=by_base[KV_TENANT],
+                        state=by_base.get(STATE_TENANT),
+                        scratch=by_base.get(SCRATCH_TENANT))
+
+
+def _tenant_spec(cfg: PagedKVConfig) -> list[tuple[str, int]]:
+    """``(name, capacity)`` of each tenant, in class order."""
     spec = [(KV_TENANT, cfg.num_pages)]
     if cfg.state_slots:
         spec.append((STATE_TENANT, cfg.state_slots))
     if cfg.scratch_slots:
         spec.append((SCRATCH_TENANT, cfg.scratch_slots))
-    by_base = {t.base_name: t
-               for t in svc.register_tenants(spec, namespace=namespace)}
-    return PagedTenants(service=svc, kv=by_base[KV_TENANT],
-                        state=by_base.get(STATE_TENANT),
-                        scratch=by_base.get(SCRATCH_TENANT))
+    return spec
+
+
+def num_alloc_classes(cfg: PagedKVConfig) -> int:
+    """Size classes (== tenants) this config's allocator carries."""
+    return len(_tenant_spec(cfg))
+
+
+def paged_service(cfg: PagedKVConfig, device: DeviceLike = None,
+                  policy: str = "freelist") -> AllocService:
+    """A fresh service on ``device`` running ``policy`` with this config's
+    tenants registered in class order (:func:`paged_tenants`'s service).
+    The JAX package caches one per config; a port service holds its
+    device, so each call builds one."""
+    return paged_tenants(cfg, device, policy).service
 
 
 def paged_tenants(cfg: PagedKVConfig, device: DeviceLike = None,
@@ -335,6 +354,24 @@ def admit_prefill_many(
                          scratch_slot=slot_rows(state.scratch_slot, t_scratch),
                          state_slot=slot_rows(state.state_slot, t_state))
     return new, stats
+
+
+def admit_prefill(
+    cfg: PagedKVConfig,
+    state: PagedKVState,
+    lane,                         # scalar int
+    k: torch.Tensor,              # [L, T, kv_heads, head_dim]
+    v: torch.Tensor,
+    length,                       # scalar int, <= T
+    tenants: PagedTenants,
+) -> tuple[PagedKVState, BurstStats]:
+    """Admit one prefilled sequence (batch-of-one
+    :func:`admit_prefill_many`)."""
+    dev = state.seq_lens.device
+    lanes = torch.as_tensor(lane, dtype=I32, device=dev).reshape(1)
+    lengths = torch.as_tensor(length, dtype=I32, device=dev).reshape(1)
+    return admit_prefill_many(cfg, state, lanes, k[None], v[None], lengths,
+                              tenants)
 
 
 # --------------------------------------------------------------------------
@@ -834,6 +871,28 @@ def release_lanes(
         release_mask, torch.arange(cfg.max_lanes, dtype=I32,
                                    device=release_mask.device), -1)
     return release_packets(cfg, state, lane_ids, tenants)
+
+
+def gather_kv(cfg: PagedKVConfig, state: PagedKVState, layer: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(k, v, valid)`` of one layer, materialized through the block
+    tables (the reference gather; a ``NO_BLOCK`` slot reads page 0).
+
+    k, v: ``[max_lanes, max_pages_per_lane * page_size, kv_heads, head_dim]``;
+    valid: ``[max_lanes, max_pages_per_lane * page_size]`` bool.
+    """
+    tbl = state.block_tables                                  # [lanes, P]
+    safe = torch.where(tbl == NO_BLOCK, 0, tbl).long()
+    lanes, P = tbl.shape
+    ps = cfg.page_size
+    k = state.k_pages[safe, layer].reshape(lanes, P * ps, cfg.kv_heads,
+                                           cfg.head_dim)
+    v = state.v_pages[safe, layer].reshape(lanes, P * ps, cfg.kv_heads,
+                                           cfg.head_dim)
+    tok = torch.arange(P * ps, dtype=I32, device=tbl.device)[None, :]
+    valid = (tok < state.seq_lens[:, None]) & \
+        (tbl != NO_BLOCK).repeat_interleave(ps, dim=1)
+    return k, v, valid & state.active[:, None]
 
 
 # --------------------------------------------------------------------------

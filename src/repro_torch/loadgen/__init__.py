@@ -9,14 +9,16 @@ and replay (port of :mod:`repro.loadgen`).
   queue depth.
 * Trace (:mod:`.trace`): a recorder on ``AllocService`` writes every
   allocator op to the JAX package's tracefile format; the replayer drives
-  a tracefile through a model-free ``AllocService`` under any policy.
+  a tracefile through a model-free ``AllocService`` under any policy, or
+  through the allocator simulator's policies (``replay_sim_policies``).
 """
 from .arrivals import (bounded_pareto_lengths, bursty_arrivals,
                        diurnal_arrivals, poisson_arrivals)
 from .driver import OpenLoopReport, run_open_loop
 from .trace import (AllocTrace, ReplayResult, TraceRecorder,
                     certify_complete, load_trace, record_service,
-                    replay_trace, save_trace)
+                    replay_sim_policies, replay_trace, save_trace,
+                    to_sim_trace)
 from .workload import ARRIVAL_KINDS, LoadgenSpec, build_workload
 
 __all__ = [
@@ -24,5 +26,6 @@ __all__ = [
     "ReplayResult", "TraceRecorder", "bounded_pareto_lengths",
     "build_workload", "bursty_arrivals", "certify_complete",
     "diurnal_arrivals", "load_trace", "poisson_arrivals", "record_service",
-    "replay_trace", "run_open_loop", "save_trace",
+    "replay_sim_policies", "replay_trace", "run_open_loop", "save_trace",
+    "to_sim_trace",
 ]

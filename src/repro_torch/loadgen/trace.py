@@ -24,6 +24,11 @@ card unless asked for the CPU; under the free list each burst is one launch
 of the support-core CUDA kernel.  The header's ``backend`` is written as
 ``"jnp"`` (the semantics the port's plain path reproduces) and ignored on
 load: the port has no backend knob.
+
+:func:`to_sim_trace` lowers a recorded op stream into the allocator
+simulator's logical trace, and :func:`replay_sim_policies` runs it through
+named sim policies (one ``sim_trace`` kernel launch per policy on the
+card): one tracefile, many simulators, one report.
 """
 from __future__ import annotations
 
@@ -38,8 +43,13 @@ import torch
 
 from ..alloc.policies import get_policy
 from ..alloc.service import AllocService
-from ..core.packets import OP_FREE, RequestQueue
+from ..core.packets import (FREE_ALL, OP_FREE, OP_MALLOC, OP_REFILL,
+                            RequestQueue)
 from ..device import DeviceLike, resolve_device
+from ..sim.costmodel import replay_cycles
+from ..sim.engine import host_counts, run_trace_counts
+from ..sim.policies import ALL_POLICIES
+from ..sim.workloads import NUM_CLASSES
 
 TRACE_MAGIC = b"REPROALLOCTRACE"
 TRACE_VERSION = 1
@@ -386,3 +396,82 @@ def replay_trace(trace: AllocTrace, policy: Optional[str] = None,
                         bursts=bursts, live_bursts=live_bursts,
                         windows=windows, ops=ops, wall_s=wall,
                         signatures=len(shapes))
+
+
+# ---------------- sim-policy replay ----------------
+
+def to_sim_trace(trace: AllocTrace, threads: int = 8) -> dict:
+    """Lower a recorded op stream into the sim's logical-trace format.
+
+    A modeling bridge, not a bit-level one: the sim replays single-sized
+    malloc/free events per thread, so a malloc/refill granting ``n``
+    blocks becomes ``n`` op-1 events, a single free one op-2 event, and a
+    FREE_ALL expands to the lane's tracked holdings at that point.  Lanes
+    map onto ``threads`` sim threads round-robin; size classes fold mod
+    the sim's ``NUM_CLASSES``.  The arrays equal the JAX package's
+    ``to_sim_trace`` of the same trace.
+    """
+    thread_l: list = []
+    op_l: list = []
+    cls_l: list = []
+    holdings: dict = {}
+    for ev in trace.events:
+        if ev[0] != "burst":
+            continue
+        _, _r, op, lane, cls, arg = ev
+        for o, ln, c, a in zip(op.tolist(), lane.tolist(), cls.tolist(),
+                               arg.tolist()):
+            if o not in (OP_MALLOC, OP_REFILL, OP_FREE):
+                continue
+            th = ln % threads if ln >= 0 else 0
+            sc = c % NUM_CLASSES
+            key = (c, ln)
+            if o in (OP_MALLOC, OP_REFILL):
+                n = max(int(a), 1)
+                holdings[key] = holdings.get(key, 0) + n
+                o_sim = 1
+            else:
+                n = holdings.pop(key, 0) if a == FREE_ALL else 1
+                if a != FREE_ALL:
+                    holdings[key] = max(holdings.get(key, 0) - 1, 0)
+                o_sim = 2
+            thread_l.extend([th] * n)
+            op_l.extend([o_sim] * n)
+            cls_l.extend([sc] * n)
+    n = len(op_l)
+    return {
+        "thread": np.asarray(thread_l, np.int32),
+        "op": np.asarray(op_l, np.int32),
+        "size_class": np.asarray(cls_l, np.int32),
+        "foreign": np.zeros(n, np.int32),
+    }
+
+
+def replay_sim_policies(trace: AllocTrace,
+                        policies: Sequence[str] = ("speedmalloc",
+                                                   "speedmalloc-stash"),
+                        threads: int = 8,
+                        device: DeviceLike = None) -> dict[str, dict]:
+    """Replay one trace through named sim policies (``ALL_POLICIES``) on
+    ``device`` (the card unless ``"cpu"``).
+
+    Returns per-policy counter dicts plus an estimated cycle cost from the
+    calibrated cost model (``sim.costmodel.replay_cycles``).
+    """
+    dev = resolve_device(device)
+    sim_trace = to_sim_trace(trace, threads=threads)
+    out: dict[str, dict] = {}
+    for name in policies:
+        cnt = host_counts(run_trace_counts(ALL_POLICIES[name], sim_trace,
+                                           threads, dev))
+        out[name] = {
+            "mallocs": int(cnt.mallocs),
+            "frees": int(cnt.frees),
+            "fast_hits": int(cnt.fast_hits),
+            "accel_hits": int(cnt.accel_hits),
+            "shared_trips": int(cnt.shared_trips),
+            "mmaps": int(cnt.mmaps),
+            "peak_bytes": int(cnt.peak_bytes),
+            "est_cycles": float(replay_cycles(cnt, threads)),
+        }
+    return out

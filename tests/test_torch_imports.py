@@ -100,7 +100,10 @@ def test_port_has_its_modules():
                 "launch/replay.py", "data/pipeline.py", "models/losses.py",
                 "train/optimizer.py", "distributed/compression.py",
                 "train/train_step.py", "distributed/checkpoint.py",
-                "train/trainer.py", "launch/train.py"):
+                "train/trainer.py", "launch/train.py", "sim/workloads.py",
+                "sim/policies.py", "sim/cachemodel.py", "sim/costmodel.py",
+                "sim/engine.py", "kernels/sim_trace/ref.py",
+                "kernels/sim_trace/ops.py"):
         assert mod in names, mod
 
 
@@ -119,7 +122,7 @@ def test_launchers_print_help(launcher):
     for flag in {"serve": ("--alloc-policy", "--loadgen", "--rate",
                            "--priority-frac", "--shared-prefix-frac",
                            "--record-trace", "--max-windows"),
-                 "replay": ("--policy", "--device"),
+                 "replay": ("--policy", "--device", "--sim", "--threads"),
                  "train": ("--device", "--steps", "--grad-accum",
                            "--checkpoint-dir", "--smoke")}[launcher]:
         assert flag in res.stdout, flag
@@ -169,6 +172,20 @@ def test_entry_points_raise_without_card(tmp_path):
     save_trace(trace, tmp_path / "t.trc")
     with pytest.raises(RuntimeError, match="CUDA"):
         replay_main([str(tmp_path / "t.trc")])
+    from repro_torch.loadgen import replay_sim_policies
+    from repro_torch.sim.costmodel import calibration_table
+    from repro_torch.sim.engine import run_trace_counts, simulate
+    from repro_torch.sim.policies import SPEEDMALLOC
+    from repro_torch.sim.workloads import MULTI_THREADED
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_trace_counts(SPEEDMALLOC, {k: [0] for k in (
+            "thread", "op", "size_class", "foreign")}, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(MULTI_THREADED["larson"], SPEEDMALLOC)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibration_table(16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_sim_policies(trace)
     from repro_torch.launch.train import main as train_main
     from repro_torch.train.trainer import Trainer, TrainerConfig
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -196,5 +213,22 @@ def test_kernel_wrapper_on_cpu_uses_plain_version():
         for a, b in zip((*got[0], got[1], got[2]),
                         (*want[0], want[1], want[2])):
             assert torch.equal(a, b)
+    assert KERNEL.launches == 0
+    assert KERNEL.lib is None        # nothing was built for the CPU path
+
+
+def test_sim_kernel_wrapper_on_cpu_uses_plain_version():
+    import numpy as np
+    from repro_torch.kernels.sim_trace.ops import KERNEL, sim_trace
+    from repro_torch.kernels.sim_trace.ref import run_trace_plain
+    from repro_torch.sim.policies import ALL_POLICIES
+    KERNEL.launches = 0
+    ev = np.array([[0, 1, 1, 0], [1, 1, 2, 2], [3, 0, 0, 3], [0, 0, 1, 0]],
+                  np.int32)
+    sizes = torch.tensor([16, 32, 64, 128], dtype=torch.int32)
+    for pol in ALL_POLICIES.values():
+        got = sim_trace(torch.from_numpy(ev), 2, pol, sizes)
+        want = run_trace_plain(ev, 2, pol, sizes.tolist())
+        assert torch.equal(torch.stack(list(got)), torch.stack(list(want)))
     assert KERNEL.launches == 0
     assert KERNEL.lib is None        # nothing was built for the CPU path
