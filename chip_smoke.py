@@ -45,7 +45,20 @@ Phases, each failing loudly (non-zero exit, no result line):
                H = KV = 32) and at the dense backbones' (phi3-medium's
                40 heads on 10 KV heads x 128, qwen2's 64 on 8 x 128,
                phi-3-vision's 32 on 32 x 96; flash at 576 + 524 rows and
-               a bf16 edge sweep at hd 96), timed there too; flash prefill over a cached
+               a bf16 edge sweep at hd 96), timed there too; mixtral-8x7b's
+               bursts at its serving pool (N = 1536) bit for bit: a gated
+               decode burst carrying mallocs, refills and the overflow
+               single frees of recycled pages, and a burst in which a
+               single free and a FREE_ALL name one refcount-1 page (it must
+               return once), both timed; paged decode at mixtral's shape
+               (32 on 8 KV heads x 128, 4 lanes of 4111-4250 tokens, window
+               4096, the slots behind the window NO_BLOCK) and flash at 4 x
+               4090 and 1 x 4100 rows (window 4096), in f32 and bf16, each
+               timed, with faults planted in their plain versions (the
+               window ignored, the last page or key tile lost) that the
+               row check must reject; every attention case holds each
+               output row to ROW_TOL of its own max besides TOL; flash
+               prefill over a cached
                prefix (query offsets 8-1200) in f32 and bf16, offset 0
                bit-identical to the call without one, and one offset
                shape per architecture timed; the bitmap and buddy policies
@@ -88,6 +101,26 @@ Phases, each failing loudly (non-zero exit, no result line):
                forward| / max |logit| <= 2e-4);
                4g-4i check launches as phase 4 does and that nothing is
                in use at the end;
+4l. mixtral  -- mixtral-8x7b at its published widths with a depth cut (16
+               of 32 layers, printed as ``reduced``; 8 experts of d_ff
+               14336, top-2, 32 heads on 8 KV heads x 128, sliding window
+               4096; 46.96 GB of bf16 weights): 8 prompts of 4000-4090
+               tokens, 16-token pages, seq_len 4352, 160 new tokens, so
+               every lane passes position 4111, where its first page slides
+               out of the window; launches as phase 4 checks them; after
+               every step no lane's table holds more than ceil(4096 / 16) +
+               1 = 257 pages and every lane recycled pages (each step's
+               tables kept and counted after the timed serve); prints recycles, stash pushes and flushes; then a
+               profile of 8 decode steps with the MoE layers' and their
+               routing's shares;
+4l'. mixtral -- decode against the forward in f32 with TF32 off at full
+               width, 2 of 32 layers, capacity factor 4 (no token can
+               drop): one 4100-token prompt, 40 steps fed given tokens, so
+               pages are recycled at positions 4111 and 4127 (max |decode
+               - forward| / max |logit| <= 2e-4);
+4m. phi3.5   -- phi3.5-moe-42b-a6.6b at its published widths, 16 of 32
+               layers (16 experts of d_ff 6400, top-2, full attention;
+               42.1 GB), 4b's traffic, the same checks;
 4f. hybrid   -- zamba2-1.2b at its published widths (38 Mamba2 layers,
                d_model 2048, one shared attention block every 6 layers:
                6 KV layers of 32 heads x 64) the same way, bf16, 4 lanes,
@@ -137,8 +170,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                what-if of the whole trace refused; prints each replay's
                wall time and bursts/s;
 5.  device   -- the same requests at the reduced configs in f32 (TF32 off)
-               through the port on ``cuda`` and on ``cpu``, for the six
-               architectures (zamba2-1.2b at 4 layers, the shared block
+               through the port on ``cuda`` and on ``cpu``, for every
+               architecture (zamba2-1.2b at 4 layers, the shared block
                twice; phi3-medium with 8 heads on 2 KV heads, qwen2 with
                8 on 1 and its QKV bias, phi-3-vision at hd 96 with 4 patch
                rows a request): allocator state and served tokens must be
@@ -154,8 +187,15 @@ Phases, each failing loudly (non-zero exit, no result line):
                zamba2-1.2b, which no prefix cache serves, instead runs its
                two shards without one under the free list and under buddy
                (a compaction pass after the second window), window by
-               window on both devices, to the same checks;
-6a. train    -- for the eight architectures at phase 5's reduced configs
+               window on both devices, to the same checks; mixtral-8x7b
+               (window 64, prompts of 65-128 tokens) and phi3.5-moe at
+               smoke widths (4 experts) the same way on one engine; mixtral
+               again with the stash off (every recycle a single free on the
+               decode burst; recycles and flushes equal on both devices),
+               then as two shards with the stash off and the cache on (copy
+               mode), window by window, its recycled pages flushed on the
+               window commits;
+6a. train    -- for the ten architectures at phase 5's reduced configs
                (gemma3-1b with one local and one global layer and 128-token
                rows, past its window of 64), f32 with TF32 off, the same
                weights and ``TokenSource`` batch on the card and on the
@@ -201,6 +241,8 @@ Phases, each failing loudly (non-zero exit, no result line):
                training runs of 6b and 6c: none; the sim kernel's over
                phase 7's main path), then the last line
                ``{"ok": true, "device": {...}}``.
+
+Each phase's header line ends with the seconds since the run began.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -255,10 +297,19 @@ WORKLOADS = {
     "whisper-medium": dict(seq=448, page=16, max_prompt=224, requests=8,
                            new_tokens=32, prompt_lens=(4, 224),
                            frames=1500),
+    # prompts just under the window of 4096, 160 new tokens: every lane
+    # passes position 4111, where its first page slides out of the window
+    "mixtral-8x7b": dict(seq=4352, page=16, max_prompt=4096, requests=8,
+                         new_tokens=160, prompt_lens=(4000, 4090)),
+    "phi3.5-moe-42b-a6.6b": dict(seq=2048, page=16, max_prompt=1536,
+                                 requests=8, new_tokens=32,
+                                 prompt_lens=(600, 1500)),
 }
 # full width with a depth cut where all layers would not fit one card:
-# qwen2-72b's 80 layers are 145 GB of bf16 weights; 8 layers are 19 GB
-DEPTH_CUT = {"qwen2-72b": 8}
+# qwen2-72b's 80 layers are 145 GB of bf16 weights; 8 layers are 19 GB;
+# mixtral-8x7b's 32 layers ~93 GB, 16 ~47 GB; phi3.5-moe's 32 ~84 GB, 16
+# ~42 GB
+DEPTH_CUT = {"qwen2-72b": 8, "mixtral-8x7b": 16, "phi3.5-moe-42b-a6.6b": 16}
 # the dense backbones' serving shapes at 4 lanes: paged decode (B, KV, G,
 # hd, ps, P, L, seq_lens) and flash prefill (B, T, H, KV, hd): phi3-medium
 # (G = 4, 10 KV heads), qwen2 (G = 8, the paged kernel's MAXG path),
@@ -285,7 +336,22 @@ WHISPER_FLASH = {"whisper-medium encoder": (4, 1500, 1500),
                  "whisper-medium cross prefill 512": (4, 512, 1500),
                  "whisper-medium cross decode": (4, 1, 1500)}
 WHISPER_PAGED = (4, 16, 1, 64, 16, 29, 24, [440, 300, 211, 37])
+# mixtral-8x7b's serving shapes at 4 lanes: paged decode (KV, G, hd, ps,
+# P, L, seq_lens, window) over 273-slot tables whose slots behind the
+# window are NO_BLOCK, and flash prefill (B, T): exact-length buckets pad
+# each 4000-4090-token prompt's pass to 4 rows; 4100 tokens, where the
+# window binds
+MIXTRAL_PAGED = (8, 4, 128, 16, 273, 16, [4200, 4150, 4111, 4250], 4096)
+MIXTRAL_FLASH = ((4, 4090), (1, 4100))
 TEACHER = dict(prompt=700, steps=8, tol=2e-4)
+# mixtral-8x7b's teacher-forced check: 2 of its 32 layers (f32 weights of
+# all 32 would not fit the card), one 4100-token prompt (the window binds
+# in the forward) and 40 steps, which recycle pages at positions 4111 and
+# 4127; a capacity factor of num_experts / experts_per_token = 4 on both
+# sides, so that no token can drop (the forward routes 4140 tokens, the
+# decode one)
+MOE_TEACHER = dict(prompt=4100, steps=40, tol=2e-4, layers=2,
+                   capacity_factor=4.0, seq=4352)
 # whisper-medium's teacher-forced check: 1500 frame rows, a 124-token prompt
 AUDIO_TEACHER = dict(frames=1500, prompt=124, steps=8, tol=2e-4)
 # phi-3-vision's teacher-forced check: 576 patch rows, a 124-token prompt
@@ -300,7 +366,8 @@ SMALL = dict(seq=256, page=8, max_prompt=128, requests=8, new_tokens=16)
 SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128),
                  "zamba2-1.2b": None, "phi3-medium-14b": None,
                  "qwen2-72b": None, "phi-3-vision-4.2b": None,
-                 "rwkv6-7b": None, "whisper-medium": None}
+                 "rwkv6-7b": None, "whisper-medium": None,
+                 "mixtral-8x7b": (65, 128), "phi3.5-moe-42b-a6.6b": None}
 # each reduced config keeps what smoke_config would hide: phi3-medium's
 # G = 4, qwen2's G = 8 (with its QKV bias), phi-3-vision's hd 96,
 # rwkv6's wkv heads of 64 and whisper's hd 64 over 150 frames (not a
@@ -326,6 +393,11 @@ FLASH_SWEEP = [(32, 32, 4, 2, 32, True, FULL), (64, 64, 4, 1, 64, True, 24),
                (32, 32, 2, 2, 32, False, FULL), (64, 64, 8, 2, 128, True, FULL)]
 TOL = {"paged": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash": {torch.float32: 2e-5, torch.bfloat16: 3e-2}}
+# each output row (one query head's hd values) against its own scale:
+# max |kernel - plain| over the row <= ROW_TOL x max |plain| over it.
+# Attention over ~4096 random keys averages to rows of max ~0.07, below
+# TOL; two bf16 ulps at the top of a row's binade are 2^-6 of it
+ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -6}
 
 
 def fail(msg: str) -> None:
@@ -722,6 +794,98 @@ def zamba2_bursts(dev, par: Parity) -> dict:
     return timed
 
 
+def swa_bursts(dev, par: Parity) -> dict:
+    """mixtral-8x7b's support-core bursts at its serving pool
+    (``make_paged_config`` at full width, seq 4352, 4 lanes, 16-token
+    pages: 1536 KV pages, 4 scratch slots), kernel against plain bit for
+    bit: the admission of four 4000-4090-token prompts; a gated decode
+    burst carrying emergency mallocs, refills and the overflow single
+    frees of recycled pages (each lane's first page, which slid out of
+    the window), as ``decode_append(window=...)`` stages them; and a
+    window burst in which a single free and its lane's FREE_ALL name the
+    same refcount-1 page, which must return once.  Nothing is in use after
+    the last release.  Returns the decode and window bursts, for
+    timing."""
+    from repro_torch.alloc.service import AllocService
+    from repro_torch.configs import get_config
+    from repro_torch.core import paged_kv as pkv
+    from repro_torch.core.freelist import validate_freelist
+    from repro_torch.core.hmq import schedule
+    from repro_torch.models import make_paged_config
+    wl = WORKLOADS["mixtral-8x7b"]
+    kvcfg = make_paged_config(get_config("mixtral-8x7b"), seq_len=wl["seq"],
+                              lanes=SERVE_LANES, page_size=wl["page"],
+                              dtype=torch.bfloat16)
+    R, kv_cls = kvcfg.stash_refill, 0
+    lanes = torch.arange(SERVE_LANES, dtype=torch.int32, device=dev)
+    prompts = np.random.RandomState(15).randint(*wl["prompt_lens"],
+                                                SERVE_LANES)
+    n_pages = torch.as_tensor(-(-prompts // wl["page"]), dtype=torch.int32,
+                              device=dev)
+    svc = AllocService(device=dev)
+    t = pkv.register_paged_tenants(svc, kvcfg)
+    timed, n0 = {}, par.bursts
+
+    def run(state, burst, R, gated, name=None):
+        sched = schedule(burst.build_queue())[0]
+        if name:
+            timed[name] = (state, sched, R, gated)
+        state = par.step_scheduled(state, sched, R, gated=gated)
+        validate_freelist(state)
+        return state
+
+    def mask(*bits):
+        return torch.tensor(bits, device=dev)
+
+    b = svc.new_burst()
+    b.malloc_run(t.kv, lanes, n_pages)
+    b.malloc(t.scratch, lanes, 1)
+    b.refill(t.kv, lanes, R)
+    state = run(svc.init_state(), b, int(n_pages.max()), False)
+    owner = state.owner[kv_cls].cpu().numpy()
+    first = torch.as_tensor([int(np.flatnonzero(owner == lane)[0])
+                             for lane in range(SERVE_LANES)],
+                            dtype=torch.int32, device=dev)
+    b = svc.new_burst()
+    b.malloc(t.kv, lanes, 1, where=mask(True, False, True, False))
+    b.refill(t.kv, lanes, R, where=mask(False, True, False, False))
+    b.free(t.kv, lanes, torch.where(mask(True, True, False, True), first,
+                                    -1))
+    used = int(state.used[kv_cls])
+    state = run(state, b, R, True, "swa_decode")
+    if int(state.used[kv_cls]) != used + 2 + R - 3 or \
+            (state.owner[kv_cls, first[[0, 1, 3]].long()] != -1).any():
+        fail("swa decode burst: the recycled pages were not returned")
+    page = int(np.flatnonzero(state.owner[kv_cls].cpu().numpy() == 0)[0])
+    other = int(np.flatnonzero(state.owner[kv_cls].cpu().numpy() == 1)[0])
+    lane0 = int((state.owner[kv_cls] == 0).sum())
+    top = int(state.free_top[kv_cls])
+    b = svc.new_burst()
+    pkv.stage_release_ops(t, b, lanes, mask(True, False, False, False))
+    pkv.stage_single_frees(t, b, [page, other])
+    state = run(state, b, 1, False, "swa_window")
+    stack = state.free_stack[kv_cls, :int(state.free_top[kv_cls])].cpu()
+    if int(state.free_top[kv_cls]) != top + lane0 + 1 or \
+            len(torch.unique(stack)) != len(stack) or \
+            int(state.refcount[kv_cls, page]) != 0:
+        fail(f"swa window burst: page {page}, named by a single free and "
+             f"by its lane's FREE_ALL, was not returned exactly once")
+    b = svc.new_burst()
+    pkv.stage_release_ops(t, b, lanes, mask(False, True, True, True))
+    state = run(state, b, 1, False)
+    if int(state.used.sum()) != 0:
+        fail(f"swa bursts: {state.used.tolist()} blocks in use after the "
+             f"release")
+    print(f"  mixtral swa bursts: {par.bursts - n0} bit-identical (N="
+          f"{state.max_capacity}: admission R={int(n_pages.max())}, gated "
+          f"decode with 3 recycle frees Q={timed['swa_decode'][1].capacity} "
+          f"R={R}, a single free and a FREE_ALL on one page Q="
+          f"{timed['swa_window'][1].capacity}: returned once; "
+          f"{plan_of(timed['swa_decode'][1].capacity, 2, state.max_capacity)}"
+          f"); nothing in use after the release")
+    return timed
+
+
 def device_ms(fn, n: int = 100) -> float:
     """Median device time of ``fn``'s launches, from CUDA events.
 
@@ -1024,17 +1188,43 @@ def time_policies(dev) -> dict:
 # --------------------------------------------------------------------------
 
 class Errors:
-    """Largest |kernel - plain| per kernel over every case checked."""
+    """Largest |kernel - plain| per kernel over every case checked, and
+    the largest row error relative to the row's scale (``ROW_TOL``)."""
 
     def __init__(self):
         self.max = {"paged": 0.0, "flash": 0.0}
+        self.rel = {"paged": 0.0, "flash": 0.0}
+
+    @staticmethod
+    def row_rel(got, want) -> float:
+        """max over rows of max |got - want| / max |want| (a zero row must
+        be matched exactly)."""
+        diff = (got.float() - want.float()).abs().flatten(0, -2).amax(1)
+        scale = want.float().abs().flatten(0, -2).amax(1)
+        return float(torch.where(diff == 0, 0.0, diff / scale).max())
 
     def check(self, kind, what, got, want, dtype):
         err = float((got.float() - want.float()).abs().max())
         if not err <= TOL[kind][dtype]:        # NaN fails too
             fail(f"{kind} kernel != plain on {what}: max abs err {err:.3e} "
                  f"> {TOL[kind][dtype]}")
+        rel = self.row_rel(got, want)
+        if not rel <= ROW_TOL[dtype]:
+            fail(f"{kind} kernel != plain on {what}: a row's max abs err is "
+                 f"{rel:.3e} of its max |plain| > {ROW_TOL[dtype]:.3e}")
         self.max[kind] = max(self.max[kind], err)
+        self.rel[kind] = max(self.rel[kind], rel)
+
+    @staticmethod
+    def planted(kind, what, fault, want, dtype) -> float:
+        """A plain version with a fault planted must fail the row check;
+        returns its row error, and whether TOL alone would have let it
+        pass is for the caller to print."""
+        rel = Errors.row_rel(fault, want)
+        if not rel > ROW_TOL[dtype]:
+            fail(f"{kind}: the planted fault {what} passes the row check "
+                 f"({rel:.3e} <= {ROW_TOL[dtype]:.3e})")
+        return rel
 
 
 def rand(rng, shape, dtype, dev):
@@ -1244,6 +1434,93 @@ def flash_offset_parity(dev, errs: Errors) -> None:
           f"bit-identical to no offset, max_abs_err={errs.max['flash']:.3e}")
 
 
+def swa_holes(case: dict, window: int, ps: int) -> dict:
+    """The case with every table slot wholly behind each lane's window set
+    to NO_BLOCK, as sliding-window recycling leaves it (the kernel reads
+    such a slot as page 0, masked)."""
+    seq = case["seq_lens"].long()
+    slot = torch.arange(case["block_tables"].shape[1], device=seq.device)
+    dead = (slot[None, :] + 1) * ps <= (seq[:, None] + 1 - window)
+    return dict(case, block_tables=torch.where(dead, -1,
+                                               case["block_tables"]))
+
+
+def swa_attention_parity(dev, errs: Errors) -> None:
+    """mixtral-8x7b's attention shapes against the plain versions, in f32
+    and bf16: paged decode over its pool (32 heads on 8 KV heads x 128,
+    16-token pages, 273-slot tables) with lanes of 4111-4250
+    tokens under the window of 4096 and the slots below it NO_BLOCK, in
+    both modes; flash prefill of 4 x 4090 rows (the window does not bind)
+    and of 1 x 4100 (it does), checked a row at a time.  The pools hold 2
+    layers (the timed case holds the serve's 16).  Each case also holds
+    plain versions with a fault planted to the same checks, and fails
+    unless the row check rejects them: paged with the window ignored (the
+    NO_BLOCK holes read as page 0 unmasked) and with each lane's last
+    page lost; flash with the last 64-key tile never read."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention_op as op
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    rng = np.random.RandomState(8)
+    KV, G, hd, ps, P, _, seq, window = MIXTRAL_PAGED
+    n = 0
+    faults: dict = {}
+
+    def plant(kind, what, fault, want, dt):
+        rel = Errors.planted(kind, what, fault, want, dt)
+        err = float((fault.float() - want.float()).abs().max())
+        key = (kind, what, str(dt).split(".")[-1])
+        old = faults.get(key, (0.0, 0.0))
+        faults[key] = (max(old[0], rel), max(old[1], err))
+
+    for dt in (torch.float32, torch.bfloat16):
+        case = swa_holes(paged_pool_case(rng, dev, dt, 4, KV, G, hd, ps, P,
+                                         2, seq, [True, True, False, True]),
+                         window, ps)
+        holes = int((case["block_tables"][:, :seq[0] // ps] < 0).sum())
+        for self_mode in (False, True):
+            args, kw = paged_args(case, window, self_mode)
+            want = paged_attention_plain(*args, **kw)
+            errs.check("paged", f"mixtral w={window} self={self_mode} with "
+                       f"{holes} holes {dt}", op(*args, **kw), want, dt)
+            plant("paged", "window ignored", paged_attention_plain(
+                *args[:-1], FULL, **kw), want, dt)
+            lost = args[4] - ((args[4] - 1) % ps + 1)
+            plant("paged", "last page lost", paged_attention_plain(
+                *args[:4], lost, window, **kw), want, dt)
+            n += 1
+        for B, T in MIXTRAL_FLASH:
+            q = rand(rng, (B, T, KV * G, hd), dt, dev)
+            k = rand(rng, (B, T, KV, hd), dt, dev)
+            v = rand(rng, (B, T, KV, hd), dt, dev)
+            got = flash_attention_op(q, k, v, window=window)
+            cut = (T - 1) // 64 * 64
+            for b in range(B):
+                want = flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                           v[b:b + 1], window=window)
+                errs.check("flash", f"mixtral B={B} T={T} w={window} row "
+                           f"{b} {dt}", got[b:b + 1], want, dt)
+                plant("flash", "last key tile lost", flash_attention_ref(
+                    q[b:b + 1], k[b:b + 1, :cut], v[b:b + 1, :cut],
+                    window=window), want, dt)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"  mixtral attention: {n} cases within tolerance (paged with "
+          f"{holes} NO_BLOCK slots below the window), max_abs_err paged "
+          f"{errs.max['paged']:.3e}, flash {errs.max['flash']:.3e}; max row "
+          f"error / row max |plain| paged {errs.rel['paged']:.3e}, flash "
+          f"{errs.rel['flash']:.3e} (limits f32 {ROW_TOL[torch.float32]:.0e},"
+          f" bf16 {ROW_TOL[torch.bfloat16]:.3e})")
+    for (kind, what, dt), (rel, err) in faults.items():
+        verdict = "passes" if err <= TOL[kind][getattr(torch, dt)] else \
+            "fails"
+        print(f"  planted fault, {kind} {what} ({dt}): row error "
+              f"{rel:.3e} of the row's max, rejected; max abs err "
+              f"{err:.3e} {verdict} the absolute limit "
+              f"{TOL[kind][getattr(torch, dt)]}")
+
+
 def paged_split_parity(dev, errs: Errors) -> None:
     """Lanes whose live range spans no split (inactive), one split,
     exactly one chunk, and every split, at the serving layouts, in both
@@ -1328,14 +1605,18 @@ def determinism(dev) -> None:
           f"{', '.join(runs)}")
 
 
-def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
+def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window,
+               holes: bool = False) -> dict:
     """The decode call at a serving shape: bf16, self mode on one layer of
-    an L-layer pool, every lane active."""
+    an L-layer pool, every lane active; with ``holes`` the slots behind
+    the window NO_BLOCK (:func:`swa_holes`)."""
     from repro_torch.kernels.paged_attention.ops import \
         paged_decode_attention_op as op
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
     case = paged_pool_case(np.random.RandomState(2), dev, torch.bfloat16, B,
                            KV, G, hd, ps, P, L, seq, [True] * B)
+    if holes:
+        case = swa_holes(case, window, ps)
     args, kw = paged_args(case, window, True)
     ms = device_ms(lambda: op(*args, **kw))
     plain_ms = device_ms(lambda: paged_attention_plain(*args, **kw))
@@ -1349,6 +1630,8 @@ def time_paged(dev, B, KV, G, hd, ps, P, L, seq, window) -> dict:
         else "operations"
     shape = dict(B=B, H=KV * G, KV=KV, hd=hd, ps=ps, P=P, seq_lens=list(seq),
                  window=window, live_tokens=live)
+    if holes:
+        shape["holes"] = int((case["block_tables"] < 0).sum())
     print(f"  time paged {shape}: kernel {ms * 1e3:.2f} us/launch, plain "
           f"{plain_ms * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -1513,14 +1796,46 @@ def check_enc_out(eng, errs: list) -> None:
     eng.admit_many = admit
 
 
+def track_recycling(eng, rec: dict) -> None:
+    """Wrap the engine's decode step to keep, with no work on the card in
+    the timed step, each step's block tables before and after it and its
+    per-tenant frees (every step makes new tensors: the tables change out
+    of place); :func:`recycling_counts` reads them after the serve."""
+    inner = eng._decode
+    rec.update(steps=[], kv=eng.tenants.kv.size_class)
+
+    def step(params, state):
+        out = inner(params, state)
+        rec["steps"].append((state.paged.block_tables,
+                             out[0].paged.block_tables,
+                             out[2].tenant.blocks_freed))
+        return out
+    eng._decode = step
+
+
+def recycling_counts(rec: dict) -> dict:
+    """From :func:`track_recycling`'s record: each lane's recycled pages
+    (table slots that a step turned to NO_BLOCK), the single frees
+    (recycles that found the stash full or off) and the most pages any
+    lane's table held after a step."""
+    before, after, freed = zip(*rec["steps"])
+    held = torch.stack(after) >= 0
+    return dict(
+        recycled=((torch.stack(before) >= 0) & ~held).sum((0, 2)).cpu(),
+        flushed=int(torch.stack(freed)[:, rec["kv"]].sum()),
+        most=int(held.sum(2).max()))
+
+
 def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
-          prefill_us=None, patch_rows=None, enc_errs=None):
+          prefill_us=None, patch_rows=None, enc_errs=None, recycling=None,
+          stash_size=None):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.serve.scheduler import Scheduler, make_scheduler_config
     kvcfg = make_paged_config(cfg, seq_len=wl["seq"], lanes=SERVE_LANES,
-                              page_size=wl["page"], dtype=dtype)
+                              page_size=wl["page"], dtype=dtype,
+                              stash_size=stash_size)
     scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
     eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
     if prefill_us is not None:
@@ -1529,6 +1844,8 @@ def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
         check_patch_rows(eng, [] if patch_rows is None else patch_rows)
     if enc_errs is not None:
         check_enc_out(eng, enc_errs)
+    if recycling is not None:
+        track_recycling(eng, recycling)
     sched = Scheduler(scfg)
     reqs = make_requests(cfg, wl, prompt_lens)
     step_us: list = []
@@ -1602,6 +1919,10 @@ def full_width_params(dev, arch: str):
         extra += (f"; whisper: {cfg.encoder_layers} encoder layers over "
                   f"{cfg.encoder_seq_len} frame rows, cross-attention after "
                   f"each decoder layer, LayerNorm, GELU MLP with biases")
+    if cfg.family == "moe":
+        extra += (f"; moe: {cfg.num_experts} experts of d_ff {cfg.d_ff}, "
+                  f"top-{cfg.experts_per_token}, capacity factor "
+                  f"{cfg.moe_capacity_factor}, f32 router")
     print(f"  {arch}: {depth}, d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
@@ -1655,16 +1976,35 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
     prefill_us: list = []
     patch_rows: list = []
     enc_errs = [] if cfg.family == "audio" else None
+    recycling = {} if cfg.attn_pattern == "swa" else None
     eng, sched, reqs, steps, step_us = serve(cfg, params, torch.bfloat16,
                                              dev, wl, wl["prompt_lens"],
                                              verbose=True,
                                              prefill_us=prefill_us,
                                              patch_rows=patch_rows,
-                                             enc_errs=enc_errs)
+                                             enc_errs=enc_errs,
+                                             recycling=recycling)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     check_served(eng, sched, reqs)
+    swa = {}
+    if recycling is not None:
+        limit = -(-cfg.window // wl["page"]) + 1
+        counts = recycling_counts(recycling)
+        per_lane = counts["recycled"].tolist()
+        flushed, most = counts["flushed"], counts["most"]
+        if most > limit or min(per_lane) <= 0:
+            fail(f"{arch}: a lane's table held {most} pages after a step "
+                 f"(limit ceil({cfg.window} / {wl['page']}) + 1 = {limit}), "
+                 f"or a lane recycled none: {per_lane}")
+        swa = dict(recycled_per_lane=per_lane, stash_pushes=sum(per_lane)
+                   - flushed, flushes=flushed, most_pages_a_lane=most)
+        print(f"  sliding window {cfg.window}: pages recycled per lane "
+              f"{per_lane} ({sum(per_lane)}: {sum(per_lane) - flushed} "
+              f"pushed to the lane stash, {flushed} flushed as single "
+              f"frees); at most {most} pages in a lane's table after any "
+              f"step (limit {limit})")
     if cfg.family == "vlm":
         if len(patch_rows) != eng.stats.admitted:
             fail(f"{arch}: {len(patch_rows)} admissions checked for their "
@@ -1746,18 +2086,21 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
                 peak_gib=peak, serve_gib=peak - held,
                 median_prefill_ms=prefill_ms, weight_gb=param_gb(params),
                 kv_pool_gb=pool_gb, decode_steps=s.decode_steps,
-                prefill_passes=s.prefill_passes, commits=s.commits)
+                prefill_passes=s.prefill_passes, commits=s.commits, **swa)
 
 
 def teacher_forced(dev, arch: str, spec: dict) -> list:
-    """``arch`` at full width in f32 with TF32 off: a ``spec["prompt"]``-
-    token prompt (vlm: behind ``spec["patches"]`` patch rows of ``randn``;
-    audio: over ``spec["frames"]`` frame rows) admitted through the
-    engine, then ``spec["steps"]`` decode steps fed given tokens (the seed
-    overwritten, so a recurrent family folds no token twice), each step's
-    logits against the full forward of the same tokens, patches and
-    frames.  Fails above ``spec["tol"]`` of max |decode - forward| / max
-    |logit|."""
+    """``arch`` at full width in f32 with TF32 off (at ``spec["layers"]``
+    layers and a capacity factor of ``spec["capacity_factor"]`` where the
+    spec gives them): a ``spec["prompt"]``-token prompt (vlm: behind
+    ``spec["patches"]`` patch rows of ``randn``; audio: over
+    ``spec["frames"]`` frame rows) admitted through the engine, then
+    ``spec["steps"]`` decode steps fed given tokens (the seed overwritten,
+    so a recurrent family folds no token twice), each step's logits
+    against the full forward of the same tokens, patches and frames at
+    that step's position (one forward over every token: a causal row does
+    not depend on later rows).  Fails above ``spec["tol"]`` of max
+    |decode - forward| / max |logit|."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_paged_config
     from repro_torch.models.transformer import forward
@@ -1765,6 +2108,10 @@ def teacher_forced(dev, arch: str, spec: dict) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(arch)
+    cut = {k: spec[v] for k, v in (("num_layers", "layers"),
+                                   ("moe_capacity_factor", "capacity_factor"))
+           if v in spec}
+    cfg = dataclasses.replace(cfg, **cut)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     n, steps, n_patch = spec["prompt"], spec["steps"], spec.get("patches", 0)
     n_frames = spec.get("frames", 0)
@@ -1779,31 +2126,38 @@ def teacher_forced(dev, arch: str, spec: dict) -> list:
         extra["prefix_embeds"] = torch.as_tensor(pe, device=dev)[None]
     if fr is not None:
         extra["encoder_frames"] = torch.as_tensor(fr, device=dev)[None]
-    kvcfg = make_paged_config(cfg, seq_len=1024, lanes=1, page_size=16,
-                              dtype=torch.float32)
+    kvcfg = make_paged_config(cfg, seq_len=spec.get("seq", 1024), lanes=1,
+                              page_size=16, dtype=torch.float32)
     eng = ServingEngine(cfg, kvcfg, params, device=dev)
     if not eng.admit(0, toks[:n], frames=fr, patches=pe):
         fail(f"{arch} teacher-forced: the admission failed")
-    errs = []
+    ref = forward(params, torch.as_tensor(toks, device=dev)[None],
+                  **extra)[0, n_patch + n - 1:]
+    errs, holes = [], 0
     for t in range(steps):
         tokens = eng.state.tokens.clone()
         tokens[0] = int(toks[n + t])
         eng.state = eng.state._replace(tokens=tokens)
         eng.state, logits, _ = eng._decode(eng.params, eng.state)
-        ref = forward(params, torch.as_tensor(toks[:n + t + 1],
-                                              device=dev)[None],
-                      **extra)[0, -1]
-        errs.append(float((logits[0] - ref).abs().max() / ref.abs().max()))
+        want = ref[t + 1]
+        errs.append(float((logits[0] - want).abs().max() / want.abs().max()))
+    if eng.window is not None:
+        holes = int((eng.state.paged.block_tables[0] < 0)[
+            :int(eng.state.paged.seq_lens[0]) // 16].sum())
+        if holes <= 0:
+            fail(f"{arch} teacher-forced: no page was recycled")
     behind = f"{n_patch} patch rows and " if n_patch else \
         f"{n_frames} frame rows and " if n_frames else ""
-    print(f"  {arch} teacher-forced, f32, TF32 off: {steps} decode steps "
-          f"after {behind}a {n}-token prompt; max |decode - forward| / max "
-          f"|logit| per step: {', '.join(f'{e:.2e}' for e in errs)} "
+    what = f" ({cfg.num_layers} layers, capacity factor " \
+        f"{cfg.moe_capacity_factor}, {holes} pages recycled)" if cut else ""
+    print(f"  {arch} teacher-forced, f32, TF32 off{what}: {steps} decode "
+          f"steps after {behind}a {n}-token prompt; max |decode - forward| "
+          f"/ max |logit| per step: {', '.join(f'{e:.2e}' for e in errs)} "
           f"(tolerance {spec['tol']:g})")
     if not max(errs) <= spec["tol"]:
         fail(f"{arch} teacher-forced decode differs from the forward by "
              f"{max(errs):.3e}")
-    del eng, params
+    del eng, params, ref
     torch.cuda.empty_cache()
     return errs
 
@@ -1902,6 +2256,31 @@ def hybrid_parts(eng) -> dict:
             "ssd": ("their SSD recurrence (plain PyTorch)", ssd)}
 
 
+def moe_parts(eng) -> dict:
+    """The moe family's step pieces on the lanes' hidden rows: every
+    layer's MoE layer (routing, dispatch, the experts' two batched
+    products over all their weights, combine), and its routing alone
+    (router product, softmax, top-k, ranks)."""
+    from repro_torch.models import moe as mo
+    params, dev, cfg = eng.params, eng.device, eng.cfg
+    spec = mo.spec_of(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((SERVE_LANES, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+
+    def layers():
+        for lp in params.layers:
+            mo.moe_apply(lp.moe, spec, h)
+
+    def routing():
+        for lp in params.layers:
+            mo.route(lp.moe, spec, h[:, 0])
+
+    return {"moe": ("the MoE layers, every layer", layers),
+            "routing": ("their routing (router, softmax, top-k, ranks)",
+                        routing)}
+
+
 def rwkv6_parts(eng) -> dict:
     """rwkv6's step pieces: every layer's time mix, and its wkv
     recurrence (plain PyTorch, as in the reference)."""
@@ -1993,7 +2372,7 @@ def shared_prefix_requests(cfg, n: int = MULTI["requests"]):
 
 
 def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool,
-                 policy: str = "freelist"):
+                 policy: str = "freelist", stash_size=None):
     """Two shards of ``SERVE_LANES`` lanes on one service running
     ``policy``, burst windows of ``MULTI["quantum"]`` steps, round robin,
     preemption on, per-shard prefix caches (LRU) in alias or copy mode."""
@@ -2001,7 +2380,8 @@ def multi_engine(cfg, params, dtype, dev, prefix_cache: bool, alias: bool,
     from repro_torch.serve.multi_engine import MultiEngine
     from repro_torch.serve.scheduler import make_scheduler_config
     kvcfg = make_paged_config(cfg, seq_len=MULTI["seq"], lanes=SERVE_LANES,
-                              page_size=MULTI["page"], dtype=dtype)
+                              page_size=MULTI["page"], dtype=dtype,
+                              stash_size=stash_size)
     scfg = make_scheduler_config(cfg, kvcfg,
                                  max_prompt_len=MULTI["max_prompt"])
     return MultiEngine(cfg, kvcfg, params, n_engines=MULTI["engines"],
@@ -2393,6 +2773,11 @@ def top2_margin(cfg, params_cpu, tokens) -> float:
 
 
 def device_vs_cpu(dev, arch: str) -> None:
+    """Phase 5 for ``arch`` at its reduced config: one engine on the card
+    and on the CPU, then the family's multi-shard runs (sliding window:
+    the engine again with the stash off, then two shards with the stash
+    off, so that every recycle is a single free on a decode or a window
+    commit)."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2403,13 +2788,37 @@ def device_vs_cpu(dev, arch: str) -> None:
         cfg = dataclasses.replace(cfg, local_per_global=1)
     params_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to(dev)
+    engine_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+    if cfg.family in ("hybrid", "ssm"):
+        # a recurrent family never hits a prefix cache: two shards without
+        # one, under the free list and under buddy
+        policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
+                             policies=("freelist", "buddy"), cache=False)
+    elif cfg.family == "audio":
+        audio_multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+    elif arch in MULTI_ARCHS:
+        multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+    elif cfg.attn_pattern == "swa":
+        engine_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu,
+                             stash_size=0)
+        policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
+                             policies=("freelist",), stash_size=0)
+
+
+def engine_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
+                         stash_size=None) -> None:
+    """One engine serving phase 5's requests on the card and on the CPU:
+    identical tokens, allocator state and paged metadata."""
     runs = {}
     for name, p, d in (("cuda", params_gpu, dev), ("cpu", params_cpu, "cpu")):
+        recycling = {} if cfg.attn_pattern == "swa" else None
         eng, sched, reqs, steps, _ = serve(cfg, p, torch.float32, d, SMALL,
-                                           SMALL_PROMPTS[arch])
+                                           SMALL_PROMPTS[arch],
+                                           recycling=recycling,
+                                           stash_size=stash_size)
         check_served(eng, sched, reqs)
-        runs[name] = (eng, reqs, steps)
-    (eg, rg, sg), (ec, rc, sc) = runs["cuda"], runs["cpu"]
+        runs[name] = (eng, reqs, steps, recycling)
+    (eg, rg, sg, cg), (ec, rc, sc, cc) = runs["cuda"], runs["cpu"]
     for a, b in zip(rg, rc):
         if a.output != b.output:
             i = next((i for i, (x, y) in enumerate(zip(a.output, b.output))
@@ -2433,6 +2842,19 @@ def device_vs_cpu(dev, arch: str) -> None:
                            getattr(ec.state.paged, field)):
             fail(f"{arch}: paged state field {field} differs between cuda "
                  f"and cpu")
+    recycled = ""
+    if cg is not None:
+        cg, cc = recycling_counts(cg), recycling_counts(cc)
+        got = [cg["recycled"].tolist(), int(cg["flushed"])]
+        every = stash_size != 0 or got[1] == sum(got[0])
+        if got != [cc["recycled"].tolist(), int(cc["flushed"])] or \
+                min(got[0]) <= 0 or not every:
+            fail(f"{arch}: pages recycled per lane and flushed {got} on the "
+                 f"card, {[cc['recycled'].tolist(), int(cc['flushed'])]} on "
+                 f"the cpu")
+        recycled = (f"; stash {eg.kvcfg.stash_size}: pages recycled per lane "
+                    f"{got[0]}, {got[1]} of them flushed as single frees on "
+                    f"the decode burst, on both")
     prompts = [r.prompt_len for r in rg]
     print(f"  {arch} ({cfg.num_layers} layers, {cfg.num_heads} heads on "
           f"{cfg.num_kv_heads} KV heads x {cfg.resolved_head_dim}"
@@ -2444,16 +2866,7 @@ def device_vs_cpu(dev, arch: str) -> None:
           f"): cuda and cpu agree on "
           f"{sum(len(r.output) for r in rg)} tokens over {sg} decode steps "
           f"(prompts {min(prompts)}-{max(prompts)}), allocator state "
-          f"bit-identical")
-    if cfg.family in ("hybrid", "ssm"):
-        # a recurrent family never hits a prefix cache: two shards without
-        # one, under the free list and under buddy
-        policy_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu, None,
-                             policies=("freelist", "buddy"), cache=False)
-    elif cfg.family == "audio":
-        audio_multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
-    elif arch in MULTI_ARCHS:
-        multi_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
+          f"bit-identical{recycled}")
 
 
 def multi_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu) -> None:
@@ -2542,24 +2955,28 @@ def audio_multi_device_vs_cpu(dev, arch: str, cfg, params_cpu,
 
 def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
                          want: dict | None, policies=PLAIN_POLICIES,
-                         cache: bool = True) -> None:
+                         cache: bool = True, stash_size=None) -> None:
     """Phase 5 under each of ``policies``: two shards (with the cache on
     unless ``cache`` is false), stepped window by window on the card and
     on the CPU, one compaction pass after the second window under any
     policy but the free list: the shared allocator state identical after
     every window, the same pages moved, and tokens identical between the
     devices and to ``want`` (the free-list run's; ``None``: the first
-    policy's run sets it)."""
+    policy's run sets it).  A windowed arch must flush recycled pages on
+    the window commits (the single frees staged there are counted on both
+    devices and must agree)."""
     alias = cfg.attn_pattern == "full"
+    flushes = {}
     for policy in policies:
         runs = {}
         for name, p, d in (("cuda", params_gpu, dev),
                            ("cpu", params_cpu, "cpu")):
             reqs = shared_prefix_requests(cfg, MULTI["small_requests"])
             me = multi_engine(cfg, p, torch.float32, d, cache, alias,
-                              policy=policy)
+                              policy=policy, stash_size=stash_size)
             me.submit(reqs, max_new_tokens=MULTI["new_tokens"])
             runs[name] = (me, reqs)
+            flushes[name] = count_window_flushes(me)
         (mg, rg), (mc, rc) = runs["cuda"], runs["cpu"]
         windows, moved = 0, None
         while mg.has_work or mc.has_work:
@@ -2589,6 +3006,10 @@ def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
         want = og if want is None else want
         if og != want:
             fail(f"{arch} {policy}: tokens differ from the free-list run's")
+        if flushes["cuda"] != flushes["cpu"] or (
+                cfg.attn_pattern == "swa" and not sum(flushes["cuda"])):
+            fail(f"{arch} {policy}: recycled pages flushed on the window "
+                 f"commits {flushes['cuda']} (cuda), {flushes['cpu']} (cpu)")
         roll = mg.tenant_rollup()
         cached = sum(e.cache.pages for e in mg.engines if e.cache is not None)
         if any(d["used"] != (cached if name == "kv_pages" else 0)
@@ -2602,13 +3023,32 @@ def policy_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
         slots = "" if slots is None else (
             f"; state_slots allocs {slots['alloc_count']} frees "
             f"{slots['free_count']} used {slots['used']}")
+        flushed = f"; {sum(flushes['cuda'])} recycled pages flushed on " \
+            f"the window commits" if cfg.attn_pattern == "swa" else ""
         print(f"  {arch} two shards under {policy}"
-              f"{'' if cache else ', no cache'}: cuda and cpu agree on "
+              f"{'' if cache else ', no cache'}"
+              f"{'' if stash_size is None else f', stash {stash_size}'}: "
+              f"cuda and cpu agree on "
               f"{sum(map(len, og.values()))} tokens and the shared "
               f"allocator state (C={mg.alloc.num_classes}) after each of "
               f"{windows} windows; {compacted}; tokens equal the free-list "
               f"run's; mean run length "
-              f"{', '.join(f'{x:.2f}' for x in runs_len)}{slots}")
+              f"{', '.join(f'{x:.2f}' for x in runs_len)}{slots}{flushed}")
+
+
+def count_window_flushes(me) -> list:
+    """Wrap the deployment's window flush: before each, the recycled pages
+    its shards' pending steps stage as single frees land in the returned
+    list (one host read a window)."""
+    counts: list = []
+    inner = me._flush_window
+
+    def flush(released, evicted):
+        pend = [p.flush_mask for e in me.engines for p in e.pending_ops]
+        counts.append(int(torch.stack(pend).sum()) if pend else 0)
+        return inner(released, evicted)
+    me._flush_window = flush
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -3209,6 +3649,14 @@ def print_ptxas(kernels) -> None:
         fail(f"kernels that must not spill do: {', '.join(spills)}")
 
 
+T_START = time.perf_counter()
+
+
+def banner(text: str) -> None:
+    """A phase's header line, with the seconds since the run began."""
+    print(f"== {text} [{time.perf_counter() - T_START:.1f}s]", flush=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
@@ -3218,6 +3666,8 @@ def card_line() -> str:
 
 
 def main() -> None:
+    global T_START
+    T_START = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     from repro_torch.kernels._build import build_all
@@ -3226,28 +3676,30 @@ def main() -> None:
     from repro_torch.kernels.sim_trace.ops import KERNEL as SIM_KERNEL
     from repro_torch.kernels.support_core.ops import KERNEL
 
-    print("== 1. card")
+    banner("1. card")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     dev = torch.device("cuda")
 
-    print("== 2. build")
+    banner("2. build")
     kernels = (KERNEL, PAGED_KERNEL, FLASH_KERNEL, SIM_KERNEL)
     build_all(kernels)
     for k in kernels:
         print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
     print_ptxas(kernels)
 
-    print("== 3. kernels against plain versions")
+    banner("3. kernels against plain versions")
     par = kernel_parity(dev)
     multi_engine_parity(dev, par)
     zamba_cases = zamba2_bursts(dev, par)
+    swa_cases = swa_bursts(dev, par)
     t_burst = {name: time_burst(name, *case)
-               for name, case in {**burst_cases(dev), **zamba_cases}.items()}
+               for name, case in {**burst_cases(dev), **zamba_cases,
+                                  **swa_cases}.items()}
     floor_ms = launch_floor_ms()
-    print("== 3. the bitmap and buddy policies: card against cpu")
+    banner("3. the bitmap and buddy policies: card against cpu")
     pol_checked = policy_parity(dev)
     check_no_sync(dev)
     t_pol = time_policies(dev)
@@ -3257,6 +3709,7 @@ def main() -> None:
     flash_parity(dev, errs)
     flash_edge_parity(dev, errs)
     flash_offset_parity(dev, errs)
+    swa_attention_parity(dev, errs)
     determinism(dev)
     t_paged = {
         "deepseek-7b": time_paged(dev, 4, 32, 1, 128, 8, 33, 30,
@@ -3268,7 +3721,10 @@ def main() -> None:
         "zamba2-1.2b": time_paged(dev, *ZAMBA_PAGED, FULL),
         **{arch: time_paged(dev, *shape, FULL)
            for arch, shape in DENSE_PAGED.items()},
-        "whisper-medium": time_paged(dev, *WHISPER_PAGED, FULL)}
+        "whisper-medium": time_paged(dev, *WHISPER_PAGED, FULL),
+        "mixtral-8x7b": time_paged(dev, 4, *MIXTRAL_PAGED, holes=True),
+        "phi3.5-moe-42b-a6.6b": time_paged(dev, 4, 8, 4, 128, 16, 129, 16,
+                                           [1500, 1200, 900, 611], FULL)}
     t_flash = {
         "deepseek-7b": time_flash(dev, 4, 128, 32, 32, 128, FULL),
         "gemma3-1b local": time_flash(dev, 4, 1536, 4, 1, 256, 512),
@@ -3282,20 +3738,25 @@ def main() -> None:
                                                    FULL)
     for name, (B, Tq, Tk) in WHISPER_FLASH.items():
         t_flash[name] = time_flash(dev, B, Tq, 16, 16, 64, FULL, Tk=Tk)
+    for B, T in MIXTRAL_FLASH:
+        t_flash[f"mixtral-8x7b {B} x {T}"] = time_flash(dev, B, T, 32, 8, 128,
+                                                       4096)
+    t_flash["phi3.5-moe-42b-a6.6b"] = time_flash(dev, 4, 1536, 32, 8, 128,
+                                                 FULL)
 
-    print("== 4. serve deepseek-7b at full width")
+    banner("4. serve deepseek-7b at full width")
     cfg, params = full_width_params(dev, "deepseek-7b")
     served = {"deepseek-7b": serve_full_width(dev, "deepseek-7b", cfg,
                                               params)}
-    print("== 4c. two engine shards on one support core, deepseek-7b at "
+    banner("4c. two engine shards on one support core, deepseek-7b at "
           "full width, prefix caches in alias mode")
     served["deepseek-7b multi-engine"] = serve_multi_full_width(dev, cfg,
                                                                 params)
-    print("== 4d. open loop: Poisson arrivals on two shards under the buddy "
+    banner("4d. open loop: Poisson arrivals on two shards under the buddy "
           "policy, deepseek-7b at full width, compaction every two windows, "
           "the allocator-op trace recorded")
     served["deepseek-7b open loop"] = open_loop_full_width(dev, cfg, params)
-    print("== 4e. the open loop's trace replayed with no model, as "
+    banner("4e. the open loop's trace replayed with no model, as "
           "recorded and, without its block ids, under each policy, on the "
           "card and on the cpu")
     replayed = replay_full_width(dev,
@@ -3305,12 +3766,12 @@ def main() -> None:
         paged_decode_attention=0, flash_attention=0))
     del params
     torch.cuda.empty_cache()
-    print("== 4b. serve gemma3-1b at full width")
+    banner("4b. serve gemma3-1b at full width")
     cfg, params = full_width_params(dev, "gemma3-1b")
     served["gemma3-1b"] = serve_full_width(dev, "gemma3-1b", cfg, params)
     del params
     torch.cuda.empty_cache()
-    print("== 4f. serve zamba2-1.2b at full width (38 Mamba2 layers, one "
+    banner("4f. serve zamba2-1.2b at full width (38 Mamba2 layers, one "
           "shared attention block after every 6th), then decode against "
           "forward in f32")
     cfg, params = full_width_params(dev, "zamba2-1.2b")
@@ -3329,7 +3790,7 @@ def main() -> None:
              "128, random QKV biases"),
             ("4i", "phi-3-vision-4.2b", "32 layers, head dim 96, 576 patch "
              "rows ahead of each prompt")):
-        print(f"== {phase}. serve {arch} at full width ({what})")
+        banner(f"{phase}. serve {arch} at full width ({what})")
         cfg, params = full_width_params(dev, arch)
         served[arch] = serve_full_width(dev, arch, cfg, params)
         del params
@@ -3342,7 +3803,7 @@ def main() -> None:
             ("4k", "whisper-medium", "24 encoder layers over 1500 frame "
              "rows, 24 decoder layers with cross-attention, 16 heads x 64",
              whisper_parts, AUDIO_TEACHER)):
-        print(f"== {phase}. serve {arch} at full width ({what}), then "
+        banner(f"{phase}. serve {arch} at full width ({what}), then "
               f"decode against forward in f32")
         cfg, params = full_width_params(dev, arch)
         served[arch] = serve_full_width(dev, arch, cfg, params)
@@ -3351,36 +3812,60 @@ def main() -> None:
         torch.cuda.empty_cache()
         served[arch]["teacher_forced_rel_err"] = teacher_forced(dev, arch,
                                                                 spec)
+    for phase, arch, what in (
+            ("4l", "mixtral-8x7b", "16 of 32 layers, 8 experts top-2, "
+             "sliding window 4096 with page recycling, 32 heads on 8 KV "
+             "heads x 128"),
+            ("4m", "phi3.5-moe-42b-a6.6b", "16 of 32 layers, 16 experts "
+             "top-2, full attention")):
+        banner(f"{phase}. serve {arch} at full width ({what})")
+        t0 = time.perf_counter()
+        cfg, params = full_width_params(dev, arch)
+        served[arch] = serve_full_width(dev, arch, cfg, params)
+        if arch == "mixtral-8x7b":
+            served[arch]["profile"] = step_profile(dev, arch, cfg, params,
+                                                   moe_parts)
+        del params
+        torch.cuda.empty_cache()
+        if arch == "mixtral-8x7b":
+            banner("4l'. mixtral-8x7b decode against forward in f32 (2 "
+                  "layers, capacity factor 4)")
+            served[arch]["teacher_forced_rel_err"] = teacher_forced(
+                dev, arch, MOE_TEACHER)
+        served[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"  phase {phase}: {served[arch]['phase_s']:.1f}s")
 
-    print("== 5. device against cpu")
+    banner("5. device against cpu")
     for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b",
                  "phi3-medium-14b", "qwen2-72b", "phi-3-vision-4.2b",
-                 "rwkv6-7b", "whisper-medium"):
+                 "rwkv6-7b", "whisper-medium", "mixtral-8x7b",
+                 "phi3.5-moe-42b-a6.6b"):
         device_vs_cpu(dev, arch)
 
-    print("== 6a. train: card against cpu, two steps at the reduced "
+    banner("6a. train: card against cpu, two steps at the reduced "
           "configs in f32")
     check_flash_refuses_grad(dev)
     trained = {arch: train_device_vs_cpu(dev, arch) for arch in (
         "deepseek-7b", "gemma3-1b", "zamba2-1.2b", "phi3-medium-14b",
-        "qwen2-72b", "phi-3-vision-4.2b", "rwkv6-7b", "whisper-medium")}
-    print("== 6b. train gemma3-1b at full width (bf16, remat, 8 x 1024 "
+        "qwen2-72b", "phi-3-vision-4.2b", "rwkv6-7b", "whisper-medium",
+        "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")}
+    banner("6b. train gemma3-1b at full width (bf16, remat, 8 x 1024 "
           "tokens, one batch 8 times)")
     full = train_full_width(dev)
     served["gemma3-1b train"] = dict(launches=full.pop("launches"))
-    print("== 6c. the trainer on the card: a preemption at step 6, restart "
+    banner("6c. the trainer on the card: a preemption at step 6, restart "
           "from the checkpoint of step 4")
     preempt = train_preempted(dev)
     served["gemma3-1b trainer"] = dict(launches=preempt.pop("launches"))
     print(json.dumps({"train": {"card_vs_cpu": trained, "full_width": full,
                                 "preempted": preempt}}))
 
-    print("== 7. sim: the allocator simulator's trace kernel against its "
+    banner("7. sim: the allocator simulator's trace kernel against its "
           "plain loop; calibration_table(16) and the open loop's trace "
           "through every sim policy, card against cpu")
     sim = sim_phase(dev, floor_ms, TRACE_PATH)
 
-    print("== 8. result")
+    banner("8. result")
     print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):
@@ -3409,6 +3894,8 @@ def main() -> None:
                           if k.startswith("pool_")},
              hybrid_shapes={k: v for k, v in t_burst.items()
                             if k.startswith("zamba2_")},
+             swa_shapes={k: v for k, v in t_burst.items()
+                         if k.startswith("swa_")},
              zamba2_serve={k: v for k, v in served["zamba2-1.2b"].items()
                            if k != "launches"},
              dense_serves={a: {k: v for k, v in served[a].items()
@@ -3416,7 +3903,9 @@ def main() -> None:
                            for a in DENSE_PAGED},
              family_serves={a: {k: v for k, v in served[a].items()
                                 if k != "launches"}
-                            for a in ("rwkv6-7b", "whisper-medium")},
+                            for a in ("rwkv6-7b", "whisper-medium",
+                                      "mixtral-8x7b",
+                                      "phi3.5-moe-42b-a6.6b")},
              plain_policies=dict(card_vs_cpu_bursts=pol_checked,
                                  times=t_pol),
              open_loop={k: v for k, v in

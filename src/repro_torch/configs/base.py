@@ -10,8 +10,10 @@ prefix of precomputed patch embeddings) --, the hybrid family --
 ``zamba2-1.2b`` (Mamba2 layers with one shared attention block) --, the
 ssm family -- ``rwkv6-7b`` (attention-free, data-dependent decay) -- and
 the audio family -- ``whisper-medium`` (an encoder over precomputed frame
-embeddings, a decoder with cross-attention); the other arch modules are
-ported with their model families (ROADMAP.md, Queue 1).
+embeddings, a decoder with cross-attention) -- and the moe family --
+``mixtral-8x7b`` (8 experts, top-2, sliding-window attention) and
+``phi3.5-moe-42b-a6.6b`` (16 experts, top-2, full attention): every arch
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ _REGISTRY: dict[str, "ArchConfig"] = {}
 
 #: arch ids the port can build today
 ARCH_IDS = ("deepseek-7b", "gemma3-1b", "phi3-medium-14b", "qwen2-72b",
-            "phi-3-vision-4.2b", "zamba2-1.2b", "rwkv6-7b", "whisper-medium")
+            "phi-3-vision-4.2b", "zamba2-1.2b", "rwkv6-7b", "whisper-medium",
+            "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
@@ -34,6 +37,8 @@ _MODULE_BY_ID = {
     "zamba2-1.2b": "zamba2_1p2b",
     "rwkv6-7b": "rwkv6_7b",
     "whisper-medium": "whisper_medium",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
 }
 
 #: the four assigned input shapes (seq_len, global_batch, kind)

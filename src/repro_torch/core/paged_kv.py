@@ -33,9 +33,14 @@ the cached K/V into fresh pages or splices the cached page ids into the
 lane's block table with a refcount bump
 (``admit_prefill_many(prefix_blocks=)``).  :func:`compact_kv` repacks
 sole-owner lane pages between burst windows so the free space coalesces
-(:func:`extent_stats` counts the runs admission got).  Sliding-window
-recycling (and with it the overflow flushes that ``PendingDecodeOps``
-carries) waits for a later slice (ROADMAP.md, Queue 1).
+(:func:`extent_stats` counts the runs admission got).
+
+Sliding-window recycling (``decode_append(window=...)``, mixtral): after
+each append the newest page that slid wholly out of the window leaves
+the lane's block table (a ``NO_BLOCK`` hole) and goes back to the lane's
+stash; where the stash is full or off it is flushed to the central stack
+as a single free on the step's burst or, with ``defer_refill``, on the
+window commit (``PendingDecodeOps.flush_mask``/``flush_blocks``).
 """
 from __future__ import annotations
 
@@ -51,8 +56,9 @@ from ..alloc.eviction import get_eviction
 from ..device import DeviceLike
 from .freelist import FreeListState, validate_freelist
 from .lane_stash import (LaneStashState, below_watermark, init_stash,
-                         stash_clear, stash_pop, stash_push_batch,
-                         stash_set_rows, validate_stash_params)
+                         stash_clear, stash_pop, stash_push,
+                         stash_push_batch, stash_set_rows,
+                         validate_stash_params)
 from .packets import NO_BLOCK
 from .scatter import add_drop, set_drop
 from .support_core import StepStats
@@ -382,8 +388,10 @@ class PendingDecodeOps(NamedTuple):
     """Deferrable allocator traffic of one decode step (``defer_refill``
     mode): the multi-engine burst window gathers these over a quantum for
     every shard and serves them with ONE merged commit.  Only sliding-window
-    recycling produces flushes, and no ported configuration recycles, so
-    ``flush_mask`` is all False here; the fields match the JAX package's."""
+    recycling produces flushes (a recycled page that found its lane's stash
+    full or off); a flushed page stays owned by its lane, out of its table,
+    until the window's commit frees it, so a release in the same window
+    returns it once through the FREE_ALL and the free together."""
 
     below: torch.Tensor           # [L] bool: lanes wanting a stash refill
     flush_mask: torch.Tensor      # [L] bool: recycled pages that overflowed
@@ -397,18 +405,27 @@ def decode_append(
     new_v: torch.Tensor,
     tenants: PagedTenants,
     defer_refill: bool = False,
+    window: Optional[int] = None,
 ):
     """Append one token per active lane through the two-tier allocator.
 
     Boundary lanes pop their page from the stash; ONE gated burst carries
-    emergency 1-page mallocs for stash misses and refills for every
-    below-watermark lane, and skips all metadata work when no packet is
-    live.  The new token's K/V is written into each lane's page in place.
+    emergency 1-page mallocs for stash misses, refills for every
+    below-watermark lane and, with ``window`` (sliding-window recycling),
+    single frees of recycled pages that found the stash full, and skips
+    all metadata work when no packet is live.  The new token's K/V is
+    written into each lane's page in place.
+
+    With ``window``, the newest page that lies wholly behind the window
+    after this append leaves the lane's table and pushes to its stash
+    first -- only that page: an older dead page that is still mapped (a
+    prompt longer than ``window + 2 * page_size``) stays until the lane's
+    release, as in the JAX package.
 
     ``defer_refill=True`` keeps only the emergency mallocs in the step's
-    burst (response width 1) and returns the refills as a third value,
-    :class:`PendingDecodeOps`, for the caller's burst window.  Returns
-    ``(state, DecodeStats)``, plus the pending ops in that mode.
+    burst (response width 1) and returns the refills and flushes as a
+    third value, :class:`PendingDecodeOps`, for the caller's burst window.
+    Returns ``(state, DecodeStats)``, plus the pending ops in that mode.
     """
     ps = cfg.page_size
     L = cfg.max_lanes
@@ -428,6 +445,25 @@ def decode_append(
         got_stash = torch.zeros((L,), dtype=torch.bool, device=dev)
         missed = needs_page
 
+    block_tables = state.block_tables
+    if window is not None:
+        # after appending at pos, tokens < pos + 1 - window are dead; page
+        # p is dead when (p + 1) * ps <= pos + 1 - window
+        dead_idx = (pos + 1 - window) // ps - 1
+        has_dead = state.active & (dead_idx >= 0) \
+            & ((dead_idx + 1) * ps <= pos + 1 - window)
+        safe_idx = dead_idx.clamp(0, cfg.max_pages_per_lane - 1)
+        dead_block = block_tables[lane_ids.long(), safe_idx.long()]
+        recycle = has_dead & (dead_block != NO_BLOCK)
+        if S:
+            stash, pushed = stash_push(stash, dead_block, recycle)
+            overflow = recycle & ~pushed
+        else:
+            overflow = recycle
+        block_tables = set_drop(block_tables,
+                                (torch.where(recycle, lane_ids, L), safe_idx),
+                                NO_BLOCK)
+
     svc, kv = tenants.service, tenants.kv
     burst = svc.new_burst()
     t_malloc = burst.malloc(kv, lane_ids, 1, where=missed)
@@ -436,6 +472,8 @@ def decode_append(
         else torch.zeros((L,), dtype=torch.bool, device=dev)
     if refill:
         t_refill = burst.refill(kv, lane_ids, cfg.stash_refill, where=below)
+    if window is not None and not defer_refill:
+        burst.free(kv, lane_ids, dead_block, where=overflow)
     alloc, res = svc.commit(state.alloc, burst,
                             max_blocks_per_req=max(
                                 1, cfg.stash_refill if refill else 1),
@@ -446,7 +484,7 @@ def decode_append(
     got = got_stash | e_got
     page_for_lane = torch.where(got_stash, popped, new_blocks)
     tbl_idx = (pos // ps).clamp(0, cfg.max_pages_per_lane - 1)
-    block_tables = set_drop(state.block_tables,
+    block_tables = set_drop(block_tables,
                             (torch.where(got, lane_ids, L), tbl_idx),
                             torch.where(got, page_for_lane, NO_BLOCK))
 
@@ -485,9 +523,12 @@ def decode_append(
     )
     if not defer_refill:
         return new, dstats
+    if window is None:                   # nothing recycles: no flushes
+        overflow = torch.zeros_like(below)
+        dead_block = torch.full_like(pos, NO_BLOCK)
     return new, dstats, PendingDecodeOps(
-        below=below, flush_mask=torch.zeros_like(below),
-        flush_blocks=torch.full((L,), NO_BLOCK, dtype=I32, device=dev))
+        below=below, flush_mask=overflow,
+        flush_blocks=torch.where(overflow, dead_block, NO_BLOCK))
 
 
 def empty_decode_stats(cfg: PagedKVConfig, tenants: PagedTenants
@@ -893,6 +934,40 @@ def gather_kv(cfg: PagedKVConfig, state: PagedKVState, layer: int
     valid = (tok < state.seq_lens[:, None]) & \
         (tbl != NO_BLOCK).repeat_interleave(ps, dim=1)
     return k, v, valid & state.active[:, None]
+
+
+def gather_kv_window(cfg: PagedKVConfig, state: PagedKVState, layer: int,
+                     window: int):
+    """``(k, v, pos, valid)`` of one layer over only the page slots that a
+    sliding window of ``window`` tokens can still see (the slots below it
+    were recycled).  A helper with the JAX package's semantics; the decode
+    reads through :func:`gather_kv` (on the CPU) or the paged kernel.
+
+    k, v: ``[max_lanes, W * page_size, kv_heads, head_dim]`` with ``W =
+    min(ceil(window / page_size) + 1, max_pages_per_lane)``; pos: the
+    absolute token positions ``[max_lanes, W * page_size]``; valid: bool
+    of the same shape.
+    """
+    ps = cfg.page_size
+    w_slots = min(-(-window // ps) + 1, cfg.max_pages_per_lane)
+    lanes = cfg.max_lanes
+    dev = state.seq_lens.device
+    first = torch.div(state.seq_lens - window, ps, rounding_mode="floor") \
+        .clamp(0, cfg.max_pages_per_lane - w_slots)
+    slot = first[:, None] + torch.arange(w_slots, dtype=I32,
+                                         device=dev)[None, :]
+    tbl = torch.gather(state.block_tables, 1, slot.long())
+    safe = torch.where(tbl == NO_BLOCK, 0, tbl).long()
+    k = state.k_pages[safe, layer].reshape(lanes, w_slots * ps,
+                                           cfg.kv_heads, cfg.head_dim)
+    v = state.v_pages[safe, layer].reshape(lanes, w_slots * ps,
+                                           cfg.kv_heads, cfg.head_dim)
+    pos = (slot[:, :, None] * ps + torch.arange(ps, dtype=I32, device=dev)
+           [None, None, :]).reshape(lanes, -1)
+    valid = (pos < state.seq_lens[:, None]) \
+        & (tbl != NO_BLOCK).repeat_interleave(ps, dim=1) \
+        & state.active[:, None]
+    return k, v, pos, valid
 
 
 # --------------------------------------------------------------------------

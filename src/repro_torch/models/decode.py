@@ -9,7 +9,10 @@ step returns the new token's K/V for every KV layer, which
 read is :func:`repro_torch.kernels.paged_attention.ops
 .paged_decode_attention_op` in its self mode: on the card the paged
 kernel reads the layer's pages in place; on the CPU the plain version
-gathers them and runs ``mea_attention``, as the JAX decode does.
+gathers them and runs ``mea_attention``, as the JAX decode does.  The
+moe family routes every lane's row, inactive lanes' too, through its MoE
+layer as one dispatch group (capacity over ``max_lanes`` tokens), as the
+JAX decode does.
 
 The hybrid family (zamba2) runs a Mamba2 step on every layer, carrying
 the lanes' :class:`RecurrentState`, and the shared attention block on the

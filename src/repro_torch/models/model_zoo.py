@@ -32,7 +32,8 @@ from ..core.lane_stash import autotune_stash
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
 from .losses import softmax_cross_entropy
-from .transformer import forward, init_lm_params, lm_class
+from .transformer import (forward, init_lm_params, lm_class,
+                          recycle_window)
 
 IGNORE_LABEL = -1
 DEFAULT_PAGE_SIZE = 64
@@ -267,7 +268,11 @@ def make_paged_config(
     scratch_slots: int | None = None,
 ) -> PagedKVConfig:
     """Size the page pool for ``lanes`` sequences of up to ``seq_len``
-    tokens (the JAX package's sizing).  ``local_global`` sizes as full
+    tokens (the JAX package's sizing).  Under ``swa`` the support core
+    recycles the pages that slide out of the window, so the pool holds
+    ``ceil(window / page_size) + 2`` live pages a lane and the stash is
+    tuned to the window's recycling cadence; the block table still
+    addresses all ``seq_len`` tokens.  ``local_global`` sizes as full
     attention: its global layers keep every page live, so no page is
     recycled and the stash is tuned without a window.
 
@@ -279,14 +284,13 @@ def make_paged_config(
     the KV pages and the scratch); the ssm family has the state slots too
     and one KV layer that no step writes, as in the JAX package.
     """
-    if cfg.attn_pattern not in ("full", "local_global"):
-        raise NotImplementedError(
-            "sliding-window page recycling waits for a later slice "
-            "(ROADMAP.md, Queue 1)")
-    live_pages = math.ceil((seq_len + 1) / page_size)
+    pages_per_lane_addr = math.ceil((seq_len + 1) / page_size)
+    recycle = recycle_window(cfg)
+    live_pages = pages_per_lane_addr if recycle is None \
+        else math.ceil(recycle / page_size) + 2
     if stash_size is None or stash_watermark is None or stash_refill is None:
         pool0 = lanes * live_pages + slack_pages
-        a_size, a_wm, a_rf = autotune_stash(page_size, None, lanes, pool0)
+        a_size, a_wm, a_rf = autotune_stash(page_size, recycle, lanes, pool0)
         size_derived = stash_size is None
         if size_derived:
             stash_size = a_size
@@ -313,7 +317,7 @@ def make_paged_config(
         page_size=page_size,
         num_pages=num_pages,
         max_lanes=lanes,
-        max_pages_per_lane=live_pages,
+        max_pages_per_lane=pages_per_lane_addr,
         dtype=dtype,
         state_slots=lanes if cfg.family in ("ssm", "hybrid") else 0,
         stash_size=stash_size,

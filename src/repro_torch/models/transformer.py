@@ -1,5 +1,5 @@
-"""LM backbones as ``nn.Module``s (port of the dense, vlm, hybrid, ssm and
-audio families of :mod:`repro.models.transformer`).
+"""LM backbones as ``nn.Module``s (port of every family of
+:mod:`repro.models.transformer`).
 
 Parameters keep the JAX tree's names and layouts, one module per layer
 (the JAX package stacks them for ``scan``):
@@ -9,6 +9,8 @@ Parameters keep the JAX tree's names and layouts, one module per layer
                (with ``qkv_bias``) bq [H*hd], bk/bv [KV*hd],
                ln_mlp, w_in [d, 2*ff], w_out [ff, d]
                (plain GELU MLP: w_in [d, ff], b_in [ff], w_out, b_out [d])
+               (moe family: moe.router [d, E] f32, moe.w_in [E, d, 2*ff],
+               moe.w_out [E, ff, d] in place of the MLP)
 
 A norm is an RMSNorm's scale ``[d]`` or a
 :class:`~repro_torch.models.layers.LayerNorm` (``scale``, ``bias``), as
@@ -16,8 +18,10 @@ A norm is an RMSNorm's scale ``[d]`` or a
 
 :class:`DenseLM` has one :class:`AttnBlock` per layer; it also serves the
 vlm family (phi-3-vision), whose forward takes the patch embeddings as a
-prefix of rows ahead of the tokens' (``prefix_embeds``).  :class:`HybridLM`
-(zamba2) has one :class:`HybridLayer` (``ln`` and a
+prefix of rows ahead of the tokens' (``prefix_embeds``), and the moe
+family (mixtral, phi3.5-moe), whose blocks route each token through
+:func:`repro_torch.models.moe.moe_apply` in place of the MLP.
+:class:`HybridLM` (zamba2) has one :class:`HybridLayer` (``ln`` and a
 :class:`~repro_torch.models.mamba2.Mamba2`) per layer and ONE
 ``shared_attn`` block, applied after every ``attn_every``-th layer with
 the same weights each time; each application is one KV layer of the paged
@@ -55,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention_op
 from . import mamba2 as m2
+from . import moe as mo
 from . import rwkv6 as rw
 from .attention import FULL_WINDOW, mea_attention
 from .layers import (LayerNorm, apply_norm, apply_rope, bias_init,
@@ -96,25 +101,34 @@ def _run_block(remat: bool, fn, x: torch.Tensor):
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
     """Attention window of each layer (``FULL_WINDOW`` = none).  Under
+    ``swa`` every layer sees ``cfg.window`` tokens (mixtral); under
     ``local_global`` every ``local_per_global + 1``-th layer is global and
     the others see ``cfg.window`` tokens (gemma3's 5:1 pattern)."""
     n = cfg.num_attn_layers
-    if cfg.attn_pattern == "full":
-        return [FULL_WINDOW] * n
+    if cfg.attn_pattern == "swa":
+        return [cfg.window] * n
     if cfg.attn_pattern == "local_global":
         period = cfg.local_per_global + 1
         return [FULL_WINDOW if i % period == cfg.local_per_global
                 else cfg.window for i in range(n)]
-    raise NotImplementedError(
-        f"attention pattern {cfg.attn_pattern!r} waits for a later slice "
-        f"(ROADMAP.md, Queue 1)")
+    return [FULL_WINDOW] * n
+
+
+def recycle_window(cfg: ArchConfig) -> Optional[int]:
+    """The page-recycling window: ``cfg.window`` when every attention
+    layer is windowed (``swa``), else ``None``."""
+    if cfg.attn_pattern == "swa" and cfg.window:
+        return cfg.window
+    return None
 
 
 class AttnBlock(nn.Module):
     """Pre-norm attention + MLP block.  Without ``cfg.qkv_bias`` the
     biases ``bq``/``bk``/``bv`` are ``None``; a gated MLP has no
     ``b_in``/``b_out``.  The JAX init has zero MLP biases; with ``gen``
-    they are drawn like the QKV biases, so a run on the card uses them."""
+    they are drawn like the QKV biases, so a run on the card uses them.
+    A block of the moe family has ``moe`` (:class:`~repro_torch.models.moe
+    .MoE`) and no ``w_in``/``w_out``."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator]):
@@ -137,6 +151,9 @@ class AttnBlock(nn.Module):
                 else bias_init(n, d, dtype, device, gen)))
         self.wo = w((H * hd, d))
         self.ln_mlp = init_norm(cfg.norm, d, dtype, device, gen)
+        if cfg.family == "moe":
+            self.moe = mo.MoE(mo.spec_of(cfg), dtype, device, gen)
+            return
         gelu = cfg.act == "gelu"
         self.w_in = w((d, ff if gelu else 2 * ff))
         self.w_out = w((ff, d))
@@ -148,8 +165,15 @@ class AttnBlock(nn.Module):
 
 def mlp_residual(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor
                  ) -> torch.Tensor:
-    """``x + mlp(norm(x))`` of one block."""
+    """``x + mlp(norm(x))`` of one block, ``x [B, S, d]`` or, at decode,
+    ``[B, d]``.  The moe family's MLP is :func:`~repro_torch.models.moe
+    .moe_apply`, over every row of ``x`` as one dispatch group (at decode
+    every lane, inactive ones too, as in the JAX decode)."""
     h = apply_norm(cfg.norm, lp.ln_mlp, x)
+    if cfg.family == "moe":
+        y = mo.moe_apply(lp.moe, mo.spec_of(cfg),
+                         h.reshape(h.shape[0], -1, h.shape[-1]))
+        return x + y.reshape(x.shape)
     return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act, lp.b_in, lp.b_out)
 
 
@@ -183,21 +207,24 @@ def _check_family(cfg: ArchConfig, families: tuple,
                   patterns: tuple = ("full",)) -> None:
     if cfg.family not in families or cfg.attn_pattern not in patterns:
         raise NotImplementedError(
-            f"repro_torch serves the dense and vlm families with full or "
-            f"local:global attention and the hybrid, ssm and audio families "
-            f"with full attention, so far; sliding-window attention and MoE "
-            f"wait for a multi-card path, so {cfg.name!r} does too "
-            f"(ROADMAP.md, Queue 1)")
+            f"{cfg.name!r}: the {cfg.family} family with "
+            f"{cfg.attn_pattern!r} attention is not built by this module "
+            f"class (the dense, vlm and moe families take full, "
+            f"local:global or sliding-window attention; the hybrid, ssm and "
+            f"audio families full attention)")
 
 
 class DenseLM(_LM):
-    """The dense decoder LM (also the vlm family's backbone).  ``gen=None``
-    leaves the weights uninitialized for a caller that loads them
+    """The dense decoder LM (also the vlm family's backbone and the moe
+    family's, whose blocks carry a :class:`~repro_torch.models.moe.MoE`
+    in place of the MLP).  ``gen=None`` leaves the weights uninitialized
+    for a caller that loads them
     (:func:`repro_torch.models.model_zoo.params_from_numpy`)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device, gen: Optional[torch.Generator] = None):
-        _check_family(cfg, ("dense", "vlm"), ("full", "local_global"))
+        _check_family(cfg, ("dense", "vlm", "moe"),
+                      ("full", "local_global", "swa"))
         super().__init__(cfg, dtype, device, gen)
         self.layers = nn.ModuleList(
             AttnBlock(cfg, dtype, device, gen) for _ in range(cfg.num_layers))

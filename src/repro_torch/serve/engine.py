@@ -11,8 +11,9 @@ launch of the support-core CUDA kernel.
 An engine can be one shard of a multi-engine deployment
 (:mod:`repro_torch.serve.multi_engine`): it then runs on a namespaced
 tenant set of a shared service (``tenants=``, ``alloc_state=``) and
-with ``defer_refill`` hands its refills to the burst window
-(``pending_ops``).
+with ``defer_refill`` hands its refills (and, under sliding-window
+attention, the flushes of recycled pages: ``self.window``) to the burst
+window (``pending_ops``).
 
 The prefix cache (``prefix_cache=True``) keeps completed lanes' full
 pages; an admission whose prompt opens with a cached prefix prefills only
@@ -76,7 +77,7 @@ from ..models.decode import RecurrentState, init_recurrent_state
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
 from .serve_step import (ServeState, init_enc_out, make_decode_step,
-                         make_family_prefill)
+                         make_family_prefill, recycle_window)
 
 I32 = torch.int32
 
@@ -300,6 +301,9 @@ class ServingEngine:
         self._decode = make_decode_step(cfg, kvcfg, self.tenants,
                                         defer_refill=defer_refill)
         self._prefill = make_family_prefill(cfg)
+        # the page-recycling window (swa), which the decode step's burst
+        # and the multi-engine window's flushes follow
+        self.window = recycle_window(cfg)
         self.stats = EngineStats()
 
     # ---------------- multi-tenant telemetry ----------------

@@ -13,7 +13,8 @@ many client engines with no cross-engine metadata synchronisation.
   classes.  Quota isolation between shards is the per-class isolation
   tenants already have; no shard sees another's metadata.
 * **Burst windows.**  Within a quantum of decode steps each shard's
-  refills accumulate as :class:`~repro_torch.core.paged_kv.PendingDecodeOps`
+  refills (and, under sliding-window attention, its flushes of recycled
+  pages) accumulate as :class:`~repro_torch.core.paged_kv.PendingDecodeOps`
   instead of committing per step; the window then drains them, every
   completed lane's FREE_ALLs and the prefix caches' eviction frees in ONE
   merged commit.  Only a lane whose stash missed at a page boundary
@@ -31,9 +32,6 @@ that committed against a stale state would silently drop another shard's
 grants.  On the card each commit (a shard's admission, decode step,
 release or cache eviction, and each window's merged commit) is one launch
 of the support-core kernel.
-
-Sliding-window page recycling (and with it the overflow flushes of a
-window) waits for a later slice; no ported configuration recycles.
 """
 from __future__ import annotations
 
@@ -265,10 +263,14 @@ class MultiEngine:
                       evicted: list[list[int]]) -> None:
         """ONE merged gated commit of every shard's window traffic: stash
         refills (the OR of the steps' ``below`` masks, masked by ``active``
-        and by room for the whole refill), completed lanes' FREE_ALLs, and
-        cache victims and alias references as single frees (the FREE_ALLs
-        skip ``CACHE_OWNER`` pages); then the refill grants go into each
-        shard's stash."""
+        and by room for the whole refill), the flushes of recycled pages
+        (single frees, staged only for a windowed shard, so that a
+        windowless one adds no NOP slots to the burst), completed lanes'
+        FREE_ALLs, and cache victims and alias references as single frees
+        (the FREE_ALLs skip ``CACHE_OWNER`` pages); then the refill grants
+        go into each shard's stash.  A flushed page of a lane released in
+        the same window is named by its free and its lane's FREE_ALL: the
+        burst returns it once."""
         L = self.kvcfg.max_lanes
         S = self.kvcfg.stash_size
         R = self.kvcfg.stash_refill
@@ -288,6 +290,10 @@ class MultiEngine:
                 below = below & paged.active & (paged.stash.depth <= S - R)
                 installs.append((i, burst.refill(eng.tenants.kv, lane_ids, R,
                                                  where=below), below))
+            if eng.window is not None:
+                for p in pend:               # NO_BLOCK entries become NOPs
+                    burst.free(eng.tenants.kv, lane_ids, p.flush_blocks,
+                               where=p.flush_mask)
             if released[i]:
                 valid = np.zeros((L,), bool)
                 valid[released[i]] = True

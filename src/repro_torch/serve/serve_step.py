@@ -3,12 +3,14 @@
 
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
-(``decode_append``); the prefill's attention is the flash kernel on the
-card.  The hybrid and ssm families also thread the lanes' recurrent state
-(``ServeState.rec``) through both.  The ssm family (rwkv6) has no K/V: its
-decode step issues no burst and only advances the active lanes'
-``seq_lens``.  The audio family (whisper) keeps each lane's encoder output
-(``ServeState.enc_out``), which its prefill computes and its decode reads.
+(``decode_append``), which under sliding-window attention also frees the
+pages that slid out of the window (:func:`recycle_window`); the prefill's
+attention is the flash kernel on the card.  The hybrid and ssm families
+also thread the lanes' recurrent state (``ServeState.rec``) through
+both.  The ssm family (rwkv6) has no K/V: its decode step issues no burst
+and only advances the active lanes' ``seq_lens``.  The audio family
+(whisper) keeps each lane's encoder output (``ServeState.enc_out``),
+which its prefill computes and its decode reads.
 
 Each shard of a multi-engine deployment builds its own decode step from
 its own tenant set.  The JAX package shares one step across shards (class
@@ -29,7 +31,7 @@ from ..core.paged_kv import (PagedKVConfig, PagedKVState, PagedTenants,
                              empty_decode_stats, init_paged_kv)
 from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
                              init_recurrent_state)
-from ..models.transformer import forward
+from ..models.transformer import forward, recycle_window
 
 I32 = torch.int32
 
@@ -113,8 +115,12 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     The step's one allocator burst goes through ``tenants.service``: the
     CUDA kernel when the state lives on the card.  An attention-free step
     (rwkv6) issues none: it advances the active lanes' ``seq_lens`` and
-    returns all-zero stats (and no deferred refill).
+    returns all-zero stats (and no deferred refill).  Under ``swa`` the
+    burst also recycles the pages behind the window
+    (:func:`recycle_window`).
     """
+    window = recycle_window(cfg)
+
     def serve_step(params, state: ServeState):
         hidden, new_kv, rec = decode_hidden(
             params, cfg, state.paged, state.tokens, state.rec,
@@ -123,7 +129,8 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
         next_tokens = logits.argmax(dim=-1).to(I32)
         if new_kv is not None:
             paged, *rest = decode_append(kvcfg, state.paged, *new_kv,
-                                         tenants, defer_refill=defer_refill)
+                                         tenants, defer_refill=defer_refill,
+                                         window=window)
         else:
             paged = state.paged._replace(
                 seq_lens=state.paged.seq_lens + state.paged.active.to(I32))

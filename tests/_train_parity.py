@@ -8,7 +8,8 @@ The reduced configs keep what ``smoke_config`` would hide, as
 its QKV bias), phi-3-vision's head dim 96, rwkv6's wkv heads of 64,
 whisper's head dim 64 over 150 frames (no multiple of a chunk), zamba2 at
 4 layers (the shared block twice) and gemma3 with one local and one global
-layer (a window of 64 that the tests' 128-token sequences exceed).
+layer (a window of 64 that the tests' 128-token sequences exceed, as they
+exceed mixtral's).
 """
 import dataclasses
 
@@ -28,8 +29,9 @@ REDUCED = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
            "phi-3-vision-4.2b": dict(head_dim=96),
            "rwkv6-7b": dict(head_dim=64),
            "whisper-medium": dict(head_dim=64, encoder_seq_len=150)}
-#: tokens a batch row holds: gemma3's window of 64 binds at 128
-SEQ = {"gemma3-1b": 128}
+#: tokens a batch row holds: gemma3's and mixtral's windows of 64 bind at
+#: 128
+SEQ = {"gemma3-1b": 128, "mixtral-8x7b": 128}
 ARCHS = ARCH_IDS
 
 
