@@ -236,10 +236,33 @@ Phases, each failing loudly (non-zero exit, no result line):
                one kernel launch; prints the kernel's time per trace
                beside the launch floor and the plain loop's host time,
                both ``calibration_table`` wall times and the card's line;
-8.  result   -- the card's line again, one JSON line describing the
+8a. mesh     -- phase 4's deepseek-7b serve (full width, the same
+               requests) on a one-rank NCCL mesh (an in-process
+               ``HashStore``): parameters placed by ``distribute_params``,
+               the engine's decode step and prefill built with
+               ``ShardingHints(mesh)``, its state placed by
+               ``distribute_state`` each step; tokens equal to phase 4's,
+               support-core launches == commits, paged == steps x 30,
+               flash == passes x 30, I1-I6 after the serve;
+8b. dry run  -- the same configuration and decode shapes dry-run on a fake
+               one-rank mesh (``meta`` tensors): its argument bytes equal
+               8a's parameters and state on the card to the byte; prints
+               its temp peak and FLOPs beside the card's peak above the
+               arguments and ``model_flops``;
+8c. meshes   -- ``repro_torch.launch.dryrun`` on the production meshes,
+               one process per cell (one CPU thread each), all started
+               together after phase 2, while the card runs phases 3-8b,
+               and collected here: qwen2-72b
+               train_4k (FSDP + TP, backward) and mixtral-8x7b prefill_32k
+               (TP-MoE, 16 dispatch groups) on 16x16, phi3.5-moe decode_32k
+               (EP) on 2x16x16, deepseek-7b decode_32k on 16x16; each
+               ``ok`` with no parameter shard above 1 GiB; prints each
+               cell's roofline row (dry-run counts over datasheet peaks,
+               not times) beside the card's line;
+9.  result   -- the card's line again, one JSON line describing the
                kernels (each kernel's launches also counted over the
-               training runs of 6b and 6c: none; the sim kernel's over
-               phase 7's main path), then the last line
+               training runs of 6b and 6c: none; over 8a's serve; the sim
+               kernel's over phase 7's main path), then the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase's header line ends with the seconds since the run began.
@@ -1828,7 +1851,7 @@ def recycling_counts(rec: dict) -> dict:
 
 def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
           prefill_us=None, patch_rows=None, enc_errs=None, recycling=None,
-          stash_size=None):
+          stash_size=None, hints=None):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import make_paged_config
     from repro_torch.serve.engine import ServingEngine
@@ -1837,7 +1860,8 @@ def serve(cfg, params, dtype, dev, wl, prompt_lens, verbose=False,
                               page_size=wl["page"], dtype=dtype,
                               stash_size=stash_size)
     scfg = make_scheduler_config(cfg, kvcfg, max_prompt_len=wl["max_prompt"])
-    eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev)
+    eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg, device=dev,
+                        hints=hints)
     if prefill_us is not None:
         time_prefill_passes(eng, prefill_us)
     if cfg.family == "vlm":
@@ -1965,9 +1989,11 @@ def check_launches(what: str, launches: dict, want: dict,
                  f"from the engines' counters")
 
 
-def serve_full_width(dev, arch: str, cfg, params) -> dict:
+def serve_full_width(dev, arch: str, cfg, params,
+                     keep_outputs: bool = False) -> dict:
     """One configuration at its published widths; returns each kernel's
-    launches in that run, set to 0 just before it."""
+    launches in that run, set to 0 just before it (and, with
+    ``keep_outputs``, every request's tokens under ``outputs``)."""
     wl = WORKLOADS[arch]
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
@@ -2086,7 +2112,9 @@ def serve_full_width(dev, arch: str, cfg, params) -> dict:
                 peak_gib=peak, serve_gib=peak - held,
                 median_prefill_ms=prefill_ms, weight_gb=param_gb(params),
                 kv_pool_gb=pool_gb, decode_steps=s.decode_steps,
-                prefill_passes=s.prefill_passes, commits=s.commits, **swa)
+                prefill_passes=s.prefill_passes, commits=s.commits, **swa,
+                **({"outputs": [list(r.output) for r in reqs]}
+                   if keep_outputs else {}))
 
 
 def teacher_forced(dev, arch: str, spec: dict) -> list:
@@ -3649,6 +3677,183 @@ def print_ptxas(kernels) -> None:
         fail(f"kernels that must not spill do: {', '.join(spills)}")
 
 
+# --------------------------------------------------------------------------
+# phase 8: the multi-device half on one card
+# --------------------------------------------------------------------------
+
+#: phase 8c's production-mesh cells: (arch, shape, the dry run's --mesh)
+MESH_CELLS = (("qwen2-72b", "train_4k", "pod"),
+              ("mixtral-8x7b", "prefill_32k", "pod"),
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "multipod"),
+              ("deepseek-7b", "decode_32k", "pod"))
+SHARD_LIMIT = 1 << 30          # no parameter shard above 1 GiB
+MESH_CELL_TIMEOUT_S = 900   # from phase 8c's start; they began at phase 3
+
+
+def local_bytes(params, state) -> int:
+    """Bytes the LM's parameters and a serving state hold on this rank
+    (a ``DTensor``'s local shard)."""
+    from repro_torch.distributed import sharding as sh
+    tensors = list(params.parameters()) + [t for _, t in sh._leaves(state)]
+    return sum((t.to_local() if sh.is_dtensor(t) else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def sharded_serve(dev, reference: list) -> dict:
+    """8a: phase 4's deepseek-7b serve on a one-rank NCCL mesh, the
+    parameters placed by ``distribute_params`` and the engine's steps
+    built with ``ShardingHints(mesh)``; tokens, launches and I1-I6 as
+    phase 4's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.hints import ShardingHints
+    from repro_torch.launch.mesh import make_host_smoke_mesh, process_group
+    arch, wl = "deepseek-7b", WORKLOADS["deepseek-7b"]
+    with process_group("nccl", 1):
+        mesh = make_host_smoke_mesh()
+        print(f"  mesh: {mesh}")
+        cfg, params = full_width_params(dev, arch)
+        sh.distribute_params(cfg, mesh, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        eng, sched, reqs, steps, step_us = serve(
+            cfg, params, torch.bfloat16, dev, wl, wl["prompt_lens"],
+            hints=ShardingHints(mesh))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check_served(eng, sched, reqs)
+        tokens = [list(r.output) for r in reqs]
+        if tokens != reference:
+            fail("8a: the sharded serve's tokens differ from phase 4's")
+        s, L = eng.stats, cfg.num_attn_layers
+        check_launches("8a", launches, dict(
+            support_core_burst=s.commits,
+            paged_decode_attention=s.decode_steps * L,
+            flash_attention=s.prefill_passes * L))
+        args = local_bytes(params, eng.state)
+        peak = torch.cuda.max_memory_allocated()
+        kvcfg = eng.kvcfg
+        print(f"  served {len(reqs)} requests in {steps} decode steps, "
+              f"{wall:.2f}s wall (median step "
+              f"{statistics.median(step_us) / 1e3:.2f} ms); tokens == phase "
+              f"4's; launches: support core "
+              f"{launches['support_core_burst']} == {s.commits} commits, "
+              f"paged {launches['paged_decode_attention']} == "
+              f"{s.decode_steps} steps x {L}, flash "
+              f"{launches['flash_attention']} == {s.prefill_passes} passes "
+              f"x {L}; I1-I6 hold")
+        del eng, params
+        torch.cuda.empty_cache()
+    return dict(launches=launches, argument_bytes=args,
+                peak_above_args=peak - args, decode_steps=s.decode_steps,
+                prefill_passes=s.prefill_passes, commits=s.commits,
+                median_step_ms=statistics.median(step_us) / 1e3,
+                wall_s=wall, kvcfg=kvcfg, cfg=cfg)
+
+
+def serve_shape_dry_run(cfg, kvcfg, card: dict) -> dict:
+    """8b: the dry run of 8a's configuration and decode shapes on a fake
+    one-rank mesh: its argument bytes are the card's, to the byte."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.hints import ShardingHints
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import make_host_smoke_mesh, process_group
+    from repro_torch.launch.roofline import step_model_flops
+    from repro_torch.models import abstract_params
+    from repro_torch.serve.serve_step import (abstract_serve_state,
+                                              make_decode_step)
+    lanes, prefilled = kvcfg.max_lanes, WORKLOADS["deepseek-7b"]["seq"] // 2
+    with process_group("fake", 1):
+        mesh = make_host_smoke_mesh()
+        params = sh.distribute_params(cfg, mesh,
+                                      abstract_params(cfg, kvcfg.dtype))
+        state, tenants = abstract_serve_state(cfg, kvcfg, lanes, prefilled)
+        state = sh.distribute_state(cfg, mesh, state)
+        step = make_decode_step(cfg, kvcfg, tenants,
+                                hints=ShardingHints(mesh))
+        rec = count_step(step, (params, state))
+    mem = rec["memory"]
+    if mem["argument_bytes"] != card["argument_bytes"]:
+        fail(f"8b: the dry run's argument bytes {mem['argument_bytes']} != "
+             f"{card['argument_bytes']} that 8a's parameters and state hold "
+             f"on the card")
+    mf = step_model_flops(cfg, "decode", lanes, prefilled)
+    print(f"  dry run of one decode step ({lanes} lanes, {prefilled} cached "
+          f"tokens, pool {kvcfg.num_pages + 1} pages of {kvcfg.page_size}): "
+          f"argument bytes {mem['argument_bytes']} == the card's; temp peak "
+          f"{mem['temp_peak_bytes']} bytes (the plain route's) beside the "
+          f"card's max_memory_allocated above the arguments "
+          f"{card['peak_above_args']} bytes over the whole serve (the "
+          f"kernels' route, prefill included); {rec['flops']:.4e} FLOPs "
+          f"counted beside model_flops {mf:.4e}; collectives "
+          f"{json.dumps(rec['collective_bytes'])}")
+    return dict(argument_bytes=mem["argument_bytes"],
+                temp_peak_bytes=mem["temp_peak_bytes"],
+                card_peak_above_args=card["peak_above_args"],
+                flops=rec["flops"], model_flops=mf,
+                bytes_accessed=rec["bytes_accessed"])
+
+
+def start_mesh_cells() -> list:
+    """8c's production-mesh dry runs, one process each (one CPU thread),
+    all started together; they run on the host's CPUs while the card
+    serves phases 3-7, and :func:`mesh_cells` collects them."""
+    procs = []
+    for arch, shape, mesh in MESH_CELLS:
+        code = ("import sys; sys.path.insert(0, 'src'); import torch; "
+                "torch.set_num_threads(1); "
+                "from repro_torch.launch.dryrun import main; "
+                f"main(['--arch', {arch!r}, '--shape', {shape!r}, "
+                f"'--mesh', {mesh!r}, '--force'])")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def stop(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mesh_cells(procs: list, card: str) -> list:
+    """8c: each production-mesh cell must be ``ok`` with no parameter
+    shard above 1 GiB; prints its roofline row."""
+    from repro_torch.launch.roofline import roofline_row
+    rows, deadline = [], time.perf_counter() + MESH_CELL_TIMEOUT_S
+    try:
+        for (arch, shape, mesh), p in zip(MESH_CELLS, procs):
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            lines = [ln for ln in out.splitlines() if ln.startswith("[")]
+            print("\n".join(f"  {ln[:400]}" for ln in lines))
+            name = "pod2x16x16" if mesh == "multipod" else "pod16x16"
+            row = roofline_row(arch, shape, name)
+            if p.returncode or row["status"] != "ok":
+                fail(f"8c: {arch} x {shape} x {name}: {row['status']} "
+                     f"(exit {p.returncode}): {row.get('reason', '')}")
+            if row["param_shard_max_bytes"] > SHARD_LIMIT:
+                fail(f"8c: {arch} x {shape}: a parameter shard of "
+                     f"{row['param_shard_max_bytes']} bytes > 1 GiB")
+            rows.append(row)
+            print(f"  roofline {arch} x {shape} x {name}: compute "
+                  f"{row['compute_s']:.4f} s, memory {row['memory_s']:.4f} "
+                  f"s, collective {row['collective_s']:.4f} s -> "
+                  f"{row['dominant']}; {row['hbm_gb_per_dev']:.2f} GB a "
+                  f"device (fits 80 GB: {row['fits_80gb']}); largest "
+                  f"parameter shard {row['param_shard_max_bytes']} bytes; "
+                  f"dry run {row['dryrun_s']:.1f}s (dry-run counts and "
+                  f"datasheet peaks of an H100 SXM, not times; this card: "
+                  f"{card})")
+    finally:
+        stop(procs)
+    return rows
+
+
 T_START = time.perf_counter()
 
 
@@ -3690,6 +3895,15 @@ def main() -> None:
         print(f"  built {k.so_path.name} in {k.build_seconds:.2f}s")
     print_ptxas(kernels)
 
+    mesh_procs = start_mesh_cells()
+    try:
+        run_phases(dev, card, mesh_procs)
+    finally:
+        stop(mesh_procs)
+
+
+def run_phases(dev, card: str, mesh_procs: list) -> None:
+    """Phases 3 to 9 (phase 8c's dry runs were started before phase 3)."""
     banner("3. kernels against plain versions")
     par = kernel_parity(dev)
     multi_engine_parity(dev, par)
@@ -3747,7 +3961,8 @@ def main() -> None:
     banner("4. serve deepseek-7b at full width")
     cfg, params = full_width_params(dev, "deepseek-7b")
     served = {"deepseek-7b": serve_full_width(dev, "deepseek-7b", cfg,
-                                              params)}
+                                              params, keep_outputs=True)}
+    ds_outputs = served["deepseek-7b"].pop("outputs")
     banner("4c. two engine shards on one support core, deepseek-7b at "
           "full width, prefix caches in alias mode")
     served["deepseek-7b multi-engine"] = serve_multi_full_width(dev, cfg,
@@ -3865,7 +4080,22 @@ def main() -> None:
           "through every sim policy, card against cpu")
     sim = sim_phase(dev, floor_ms, TRACE_PATH)
 
-    banner("8. result")
+    banner("8a. deepseek-7b at full width on a one-rank NCCL mesh: the "
+          "sharded decode step and prefill, phase 4's traffic")
+    sharded = sharded_serve(dev, ds_outputs)
+    served["deepseek-7b one-rank mesh"] = dict(
+        launches=sharded.pop("launches"))
+    banner("8b. the same configuration and decode shapes dry-run on a fake "
+          "one-rank mesh")
+    dry = serve_shape_dry_run(sharded.pop("cfg"), sharded.pop("kvcfg"),
+                              sharded)
+    banner("8c. production-mesh dry runs (fake process groups of 256 and "
+          "512 ranks, meta tensors)")
+    cells = mesh_cells(mesh_procs, card)
+    print(json.dumps({"mesh": {"one_rank_serve": sharded, "dry_run": dry,
+                               "cells": cells}}))
+
+    banner("9. result")
     print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):

@@ -95,6 +95,17 @@ class ArchConfig:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm" and self.attn_every == 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid / bounded-window attention)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.attn_pattern in ("swa", "local_global")
+
+    @property
     def num_attn_layers(self) -> int:
         """Number of attention (KV-cache-bearing) layer instances."""
         if self.family == "ssm":
@@ -102,6 +113,59 @@ class ArchConfig:
         if self.family == "hybrid":
             return self.num_layers // max(self.attn_every, 1)
         return self.num_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the roofline's model FLOPs; the JAX
+        package's formula, term for term)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        if self.qkv_bias:
+            per_attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        gated = self.act in ("swiglu", "geglu")
+        per_mlp = d * ff * (3 if gated else 2)
+        if self.family == "moe":
+            per_mlp = per_mlp * self.num_experts + d * self.num_experts  # + router
+        norms = 2 * d
+        if self.family == "ssm":  # rwkv6: time-mix + channel-mix
+            return emb + self.num_layers * self._rwkv_layer_params() + d
+        if self.family == "hybrid":
+            mamba = self._mamba_layer_params()
+            shared_attn = per_attn + per_mlp + norms
+            return emb + self.num_layers * mamba + shared_attn + d
+        per_layer = per_attn + per_mlp + norms
+        total = emb + self.num_layers * per_layer + d
+        if self.encoder_layers:
+            total += self.encoder_layers * per_layer + self.encoder_seq_len * d + d
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        gated = self.act in ("swiglu", "geglu")
+        per_expert = d * ff * (3 if gated else 2)
+        inactive = (self.num_experts - self.experts_per_token) * per_expert
+        return self.param_count() - self.num_layers * inactive
+
+    def _mamba_layer_params(self) -> int:
+        d = self.d_model
+        d_inner = 2 * d
+        heads = d_inner // self.ssm_head_dim
+        n = self.ssm_state
+        # in_proj (z,x,B,C,dt) + out_proj + conv + A,D + norms
+        return d * (2 * d_inner + 2 * n + heads) + d_inner * d \
+            + 4 * (d_inner + 2 * n) + 2 * heads + 2 * d + d_inner
+
+    def _rwkv_layer_params(self) -> int:
+        d, ff = self.d_model, self.d_ff
+        # time-mix: r,k,v,g,o projections + decay LoRA + token-shift mixing
+        tm = 5 * d * d + 2 * d * 64 + 6 * d
+        cm = 2 * d * ff + d * d  # channel-mix: key [d,ff], value [ff,d], recept [d,d]
+        return tm + cm + 2 * d
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -426,7 +426,28 @@ def decode_append(
     burst (response width 1) and returns the refills and flushes as a
     third value, :class:`PendingDecodeOps`, for the caller's burst window.
     Returns ``(state, DecodeStats)``, plus the pending ops in that mode.
+    On a mesh (``DTensor`` state) the metadata work runs on every rank
+    over the replicated allocator state
+    (:func:`repro_torch.distributed.sharding.local_replicated`) and the
+    K/V goes into each rank's shard of the pools
+    (:func:`~repro_torch.distributed.sharding.pool_write`).
     """
+    from ..distributed.sharding import local_replicated, pool_write
+    meta = state._replace(k_pages=None, v_pages=None)
+    new, dst_page, offset, *rest = local_replicated(_append_metadata)(
+        cfg, meta, tenants, defer_refill, window)
+    pool_write(state.k_pages, dst_page, offset, new_k)
+    pool_write(state.v_pages, dst_page, offset, new_v)
+    return (new._replace(k_pages=state.k_pages, v_pages=state.v_pages),
+            *rest)
+
+
+def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
+                     tenants: PagedTenants, defer_refill: bool,
+                     window: Optional[int]):
+    """:func:`decode_append`'s allocator and table work: ``(state without
+    pools, the pages and offsets to write, DecodeStats[,
+    PendingDecodeOps])``."""
     ps = cfg.page_size
     L = cfg.max_lanes
     S = cfg.stash_size
@@ -503,8 +524,6 @@ def decode_append(
     offset = (pos % ps).long()
     dst_page = torch.where(writable & (cur_block != NO_BLOCK), cur_block,
                            cfg.num_pages).long()
-    state.k_pages[dst_page, :, offset] = new_k.to(cfg.dtype)
-    state.v_pages[dst_page, :, offset] = new_v.to(cfg.dtype)
 
     new = state._replace(alloc=alloc, block_tables=block_tables,
                          seq_lens=torch.where(writable, pos + 1, pos),
@@ -522,11 +541,11 @@ def decode_append(
         queue_capacity=res.stats.queue_capacity,
     )
     if not defer_refill:
-        return new, dstats
+        return new, dst_page, offset, dstats
     if window is None:                   # nothing recycles: no flushes
         overflow = torch.zeros_like(below)
         dead_block = torch.full_like(pos, NO_BLOCK)
-    return new, dstats, PendingDecodeOps(
+    return new, dst_page, offset, dstats, PendingDecodeOps(
         below=below, flush_mask=overflow,
         flush_blocks=torch.where(overflow, dead_block, NO_BLOCK))
 

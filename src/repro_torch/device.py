@@ -24,6 +24,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is false; "
             "pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu or "
+                         f"meta (shapes only: the dry run)")
     return dev

@@ -11,7 +11,13 @@ with key 0, it takes a query offset (``q_offset``: a prefix-cache hit's
 suffix attends over the cached prefix's keys):
 
 * a CUDA ``q`` launches the hand-written kernel or raises;
-* a CPU ``q`` runs the plain version (:mod:`.ref`).
+* a CPU ``q`` runs the plain version (:mod:`.ref`), and so does a
+  ``meta`` one: it has no data for a kernel to read (the dry run); on a
+  mesh each rank runs it over its lanes and KV heads
+  (:func:`repro_torch.distributed.sharding.heads_local`);
+* a ``DTensor`` ``q`` on the card launches the kernel over the local
+  tensors when every operand is whole on the rank (a one-rank mesh) and
+  raises otherwise (:func:`repro_torch.distributed.sharding.whole_on_rank`).
 
 The kernel has no backward, so on either device the op raises when grad
 mode is on and an input requires a gradient, rather than hand back a
@@ -24,11 +30,13 @@ takes ``mea_attention`` (``differentiable=True`` in
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
 from ...models.attention import FULL_WINDOW
+from ...distributed.sharding import heads_local, is_dtensor, whole_on_rank
 from .._build import Kernel
 from .ref import flash_attention_ref
 
@@ -62,11 +70,15 @@ def flash_attention_op(
         raise RuntimeError(
             "flash_attention_op is forward-only: an input requires a "
             "gradient; train through mea_attention (differentiable=True)")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+    if q.device.type in ("cpu", "meta"):
+        return heads_local(functools.partial(
+            flash_attention_ref, causal=causal, window=window,
+            q_offset=q_offset), q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
+    if is_dtensor(q):
+        return whole_on_rank(flash_attention_op, q, q, k, v, causal=causal,
+                             window=window, q_offset=q_offset)
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:

@@ -6,7 +6,12 @@
 its ``impl``/``interpret`` switches: the device decides):
 
 * a CUDA ``q`` launches the hand-written kernel or raises;
-* a CPU ``q`` runs the plain version (:mod:`.ref`).
+* a CPU ``q`` runs the plain version (:mod:`.ref`), and so does a
+  ``meta`` one: it has no data for a kernel to read (the dry run); on a
+  mesh each rank runs it over its lanes and KV heads;
+* a ``DTensor`` ``q`` on the card launches the kernel over the local
+  tensors when every operand is whole on the rank (a one-rank mesh) and
+  raises otherwise (:func:`repro_torch.distributed.sharding.whole_on_rank`).
 
 The pages may be any ``[num_pages, ps, KV, hd]`` view whose last dim is
 contiguous -- the JAX layout, or one layer of the port's
@@ -38,6 +43,9 @@ from typing import Optional
 import torch
 
 from ...models.attention import FULL_WINDOW
+from ...distributed.hints import current_hints
+from ...distributed.sharding import (attention_axes, is_dtensor, shard_map,
+                                     whole_on_rank)
 from .._build import Kernel
 from .ref import paged_attention_plain
 
@@ -106,14 +114,49 @@ def paged_decode_attention_op(
         raise ValueError("active lanes apply to the self mode only")
     if self_mode and active is None:
         active = torch.ones(q.shape[:1], dtype=torch.bool, device=q.device)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
+        if is_dtensor(q):
+            return _plain_on_mesh(q, k_pages, v_pages, block_tables,
+                                  seq_lens, window, k_self, v_self, active)
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      seq_lens, window, k_self, v_self, active)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_op: unsupported device "
                          f"{q.device}")
+    if is_dtensor(q):
+        return whole_on_rank(paged_decode_attention_op, q, q, k_pages,
+                             v_pages, block_tables, seq_lens, window,
+                             k_self=k_self, v_self=v_self, active=active)
     return _launch(q, k_pages, v_pages, block_tables, seq_lens, int(window),
                    k_self, v_self, active)
+
+
+def _plain_on_mesh(q, k_pages, v_pages, block_tables, seq_lens, window,
+                   k_self, v_self, active) -> torch.Tensor:
+    """The plain version on ``DTensor`` operands, on each rank over its
+    lanes (the data axes, where they divide) and, under the ambient
+    hints' ``gathered_kv`` spec (``kv_gather_shard="auto"``), its KV heads
+    (``model``, where they divide; else, and under ``lanes``, every rank
+    of a ``model`` group gathers and attends over all heads, as the
+    reference's lanes-only gather does).  The pages are gathered whole
+    over the data axes (the reference's pool-sized collective under the
+    ``pages`` layout); the block tables and lane scalars split with the
+    lanes."""
+    mesh = q.device_mesh
+    KV = k_pages.shape[2]
+    dp, m = attention_axes(mesh, q.shape[0], KV)
+    hints = current_hints()
+    if hints.mesh is None or hints.gathered_kv_spec(KV)[2] is None:
+        m = None
+    heads, lanes = (dp, m, None), (dp,)
+    pages = (None, None, m, None)
+    specs = (heads, pages, pages, (dp, None), lanes, None,
+             heads if k_self is not None else None,
+             heads if v_self is not None else None,
+             lanes if active is not None else None)
+    return shard_map(paged_attention_plain, mesh, specs, heads)(
+        q, k_pages, v_pages, block_tables, seq_lens, window, k_self, v_self,
+        active)
 
 
 def _launch(q, k_pages, v_pages, block_tables, seq_lens, window, k_self,

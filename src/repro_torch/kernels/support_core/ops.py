@@ -8,7 +8,11 @@ order.  The device of the state decides the path:
 * a CUDA state launches the hand-written kernel (built for ``sm_90a`` with
   ``nvcc`` at first use, bound through ``ctypes``) or raises;
 * a CPU state runs the plain PyTorch version
-  (:func:`repro_torch.core.support_core._step_scheduled_torch`).
+  (:func:`repro_torch.core.support_core._step_scheduled_torch`), and so
+  does a ``meta`` one: it has no data for a kernel to read (the dry run).
+  On a mesh the allocator's state is replicated and reaches this function
+  as local tensors (:func:`repro_torch.distributed.sharding
+  .local_replicated`).
 
 On the card each size class is one block or one thread-block cluster;
 :func:`plan_burst` picks the path, the cluster size and the slices of the
@@ -180,7 +184,7 @@ def support_core_burst(
     device.  The kernel is out of place; ``state`` is never written.
     """
     dev = state.free_stack.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return _step_scheduled_torch(state, sched, max_blocks_per_req,
                                      gated=gated)
     if dev.type != "cuda":

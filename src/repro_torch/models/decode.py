@@ -37,6 +37,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.paged_kv import PagedKVState
+from ..distributed.sharding import embed_lookup
 from ..kernels.paged_attention.ops import paged_decode_attention_op
 from . import mamba2 as m2
 from . import rwkv6 as rw
@@ -120,15 +121,18 @@ def _rwkv6_step(params, x: torch.Tensor, rec: RecurrentState):
 def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
                   tokens: torch.Tensor,             # [B] int32
                   rec: Optional[RecurrentState] = None,
-                  enc_out: Optional[torch.Tensor] = None):
+                  enc_out: Optional[torch.Tensor] = None, hints=None):
     """Run the layer stack for one token per lane.
 
     Returns ``(hidden [B, d], (new_k, new_v) or None, new_rec)`` with K/V
     ``[B, L_kv, KV, hd]`` (``None`` for the attention-free ssm family);
     ``new_rec`` is ``None`` for attention families.  The audio family
-    reads ``enc_out [B, F, d]``.
+    reads ``enc_out [B, F, d]``.  ``hints`` puts the embedded lanes over
+    the data axes (the gathered KV's hint is the paged read's, ambient).
     """
-    x = params.embed[tokens.long()]
+    x = embed_lookup(params.embed, tokens)
+    if hints is not None:
+        x = hints.lanes(x)
     if cfg.family == "ssm":
         x, new_rec = _rwkv6_step(params, x, rec)
         return x, None, new_rec

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import fit_split, grad_fit, linear
+
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
@@ -100,19 +102,19 @@ def mlp_apply(w_in: torch.Tensor, w_out: torch.Tensor, x: torch.Tensor,
     is the plain MLP with biases (whisper): ``gelu(x @ w_in + b_in) @
     w_out + b_out``, GELU in its tanh form too."""
     if act == "gelu":
-        h = x @ w_in
+        h = linear(x, w_in)
         if b_in is not None:
             h = h + b_in
-        y = F.gelu(h, approximate="tanh") @ w_out
+        y = linear(F.gelu(h, approximate="tanh"), w_out)
         return y if b_out is None else y + b_out
-    gate, up = (x @ w_in).chunk(2, dim=-1)
+    gate, up = linear(x, w_in).chunk(2, dim=-1)
     if act == "swiglu":
         g = F.silu(gate)
     elif act == "geglu":
         g = F.gelu(gate, approximate="tanh")
     else:
         raise NotImplementedError(f"gated MLP activation {act!r}")
-    return (g * up) @ w_out
+    return linear(g * up, w_out)
 
 
 def dense_init(shape: tuple, dtype: torch.dtype, device: torch.device,
@@ -148,14 +150,15 @@ def qkv_project(wq, wk, wv, x: torch.Tensor, num_heads: int,
     lead = x.shape[:-1]
 
     def proj(w, b, heads):
-        y = x @ w
+        y = linear(x, w)
         if b is not None:
             y = y + b
-        return y.reshape(*lead, heads, head_dim)
+        return fit_split(y, -1, heads).reshape(*lead, heads, head_dim)
     return (proj(wq, bq, num_heads), proj(wk, bk, num_kv_heads),
             proj(wv, bv, num_kv_heads))
 
 
 def out_project(wo: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """``attn [..., T, H, hd]`` -> ``[..., T, d]``."""
-    return attn.reshape(*attn.shape[:-2], -1) @ wo
+    return linear(grad_fit(attn.reshape(*attn.shape[:-2], -1), -1,
+                           attn.shape[-2]), wo)

@@ -29,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import attention_axes, find_mesh, shard_map
+
 LOG_DECAY_MIN = -8.0   # w >= e^-8 ~= 3.4e-4 per step
 DEFAULT_CHUNK = 16     # exponent bound: 16 * 8 = 128 < log(f32 max) when centered
 
@@ -51,7 +53,18 @@ def chunked_linear_attention(
     initial_state: Optional[torch.Tensor] = None,  # [B, H, dk, dv]
     chunk: int = DEFAULT_CHUNK,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(y [B, T, H, dv] f32, final_state [B, H, dk, dv] f32)``."""
+    """Returns ``(y [B, T, H, dv] f32, final_state [B, H, dk, dv] f32)``.
+    On a mesh each rank runs it over its lanes and heads."""
+    mesh = find_mesh((q, k, v, log_decay, bonus, initial_state))
+    if mesh is not None:
+        dp, m = attention_axes(mesh, q.shape[0], q.shape[2])
+        seq, st = (dp, None, m, None), (dp, m, None, None)
+        return shard_map(
+            lambda q, k, v, ld, u, s0: chunked_linear_attention(
+                q, k, v, ld, strict=strict, shifted=shifted, bonus=u,
+                initial_state=s0, chunk=chunk), mesh,
+            (seq, seq, seq, seq, (m, None), st), [seq, st])(
+                q, k, v, log_decay, bonus, initial_state)
     B, T, H, dk = q.shape
     dv = v.shape[-1]
     orig_T = T
@@ -143,7 +156,17 @@ def linear_attention_decode_step(
     bonus: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrence (the serving path).  Returns ``(new_state,
-    y [B, H, dv])``."""
+    y [B, H, dv])``.  On a mesh each rank runs it over its lanes and
+    heads."""
+    mesh = find_mesh((state, q, k, v, log_decay, bonus))
+    if mesh is not None:
+        dp, m = attention_axes(mesh, q.shape[0], q.shape[1])
+        st, row = (dp, m, None, None), (dp, m, None)
+        return shard_map(
+            lambda *a: linear_attention_decode_step(*a[:5], strict=strict,
+                                                    bonus=a[5]), mesh,
+            (st, row, row, row, row, (m, None)), [st, row])(
+                state, q, k, v, log_decay, bonus)
     q, k, v = q.to(F32), k.to(F32), v.to(F32)
     w = torch.exp(_decay(log_decay, k.shape))
     kv = k[..., None] * v[..., None, :]

@@ -12,10 +12,17 @@ end to end and works over row chunks:
 
 so neither pass holds more than one chunk of rows in f32.  The arithmetic is
 the JAX custom VJP's, row for row.
+
+Sharded logits (a ``DTensor`` on a mesh: rows over the data axes, the
+vocabulary over ``model``) are one chunk, each rank holding its slice,
+and the label's logit and the one-hot are selected by a mask rather than
+indexed, so that no rank gathers the vocabulary.
 """
 from __future__ import annotations
 
 import torch
+
+from ..distributed.sharding import is_dtensor
 
 #: f32 elements of one chunk of rows (256 MiB): 256 rows at a 262144-word
 #: vocabulary, the whole batch at a small one
@@ -37,12 +44,19 @@ class SoftmaxCrossEntropy(torch.autograd.Function):
         V = logits.shape[-1]
         flat = logits.reshape(-1, V)
         lab = labels.reshape(-1).long()
-        rows = _chunk_rows(flat.shape[0], V, chunk_rows)
-        lse = torch.empty(flat.shape[0], dtype=torch.float32,
-                          device=logits.device)
-        for s in range(0, flat.shape[0], rows):
-            lse[s:s + rows] = torch.logsumexp(flat[s:s + rows].float(), dim=-1)
-        gold = flat.gather(1, lab[:, None])[:, 0].float()
+        if is_dtensor(flat):
+            rows = flat.shape[0]
+            lse = torch.logsumexp(flat.float(), dim=-1)
+            gold = torch.where(_is_label(flat, lab), flat.float(),
+                               0.0).sum(-1)
+        else:
+            rows = _chunk_rows(flat.shape[0], V, chunk_rows)
+            lse = torch.empty(flat.shape[0], dtype=torch.float32,
+                              device=logits.device)
+            for s in range(0, flat.shape[0], rows):
+                lse[s:s + rows] = torch.logsumexp(flat[s:s + rows].float(),
+                                                  dim=-1)
+            gold = flat.gather(1, lab[:, None])[:, 0].float()
         ctx.save_for_backward(flat, lab, lse)
         ctx.rows = rows
         ctx.shape = logits.shape
@@ -52,6 +66,11 @@ class SoftmaxCrossEntropy(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         flat, lab, lse = ctx.saved_tensors
         g = g.reshape(-1).float()
+        if is_dtensor(flat):
+            p = torch.exp(flat.float() - lse[:, None])
+            p = torch.where(_is_label(flat, lab), p - 1.0, p)
+            return (p * g[:, None]).to(flat.dtype).reshape(ctx.shape), \
+                None, None
         d = torch.empty_like(flat)
         rows = ctx.rows
         for s in range(0, flat.shape[0], rows):
@@ -60,6 +79,12 @@ class SoftmaxCrossEntropy(torch.autograd.Function):
             p[torch.arange(e - s, device=p.device), lab[s:e]] -= 1.0
             d[s:e] = (p * g[s:e, None]).to(d.dtype)
         return d.reshape(ctx.shape), None, None
+
+
+def _is_label(flat: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """``[rows, V]`` bool: column == the row's label."""
+    cols = torch.arange(flat.shape[-1], device=flat.device)
+    return cols[None, :] == lab[:, None]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import dense_init, rmsnorm
+from ..distributed.sharding import (attention_axes, find_mesh, fit_split,
+                                    grad_fit, linear, shard_map)
 from .linear_attention import (chunked_linear_attention,
                                linear_attention_decode_step)
 
@@ -102,13 +104,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _causal_conv(p: Mamba2, xBC: torch.Tensor,
+def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
+                 xBC: torch.Tensor,
                  conv_state: Optional[torch.Tensor] = None):
     """Depthwise causal conv (K = 4) as a sum of four shifted products in
     f32.  ``xBC [B, T, conv_dim]``; decode prepends the carried K-1 inputs.
     Returns the activated output and the last K-1 inputs (pre-activation),
     both in ``xBC``'s dtype."""
-    w = p.conv_w.to(F32)                              # [K, conv_dim]
+    w = conv_w.to(F32)                                # [K, conv_dim]
     x = xBC.to(F32)
     if conv_state is not None:
         x = torch.cat([conv_state.to(F32), x], dim=1)
@@ -116,7 +119,7 @@ def _causal_conv(p: Mamba2, xBC: torch.Tensor,
         x = F.pad(x, (0, 0, CONV_K - 1, 0))
     T_out = xBC.shape[1]
     y = sum(x[:, i:i + T_out] * w[i] for i in range(CONV_K))
-    y = F.silu(y + p.conv_b.to(F32))
+    y = F.silu(y + conv_b.to(F32))
     new_state = x[:, -(CONV_K - 1):]
     return y.to(xBC.dtype), new_state.to(xBC.dtype)
 
@@ -126,8 +129,17 @@ def _gated_out(p: Mamba2, spec: Mamba2Spec, y: torch.Tensor,
     """D skip, gated RMSNorm and the output projection; ``y`` and ``xs``
     are ``[..., heads, head_dim]``."""
     y = y + p.D.to(F32)[:, None] * xs.to(F32)
-    y = y.reshape(*y.shape[:-2], spec.d_inner)
-    return (rmsnorm(p.norm_scale, y.to(dtype)) * F.silu(z)) @ p.out_proj
+    y = grad_fit(y.reshape(*y.shape[:-2], spec.d_inner), -1, spec.heads)
+    return linear(rmsnorm(p.norm_scale, y.to(dtype)) * F.silu(z), p.out_proj)
+
+
+def _conv_with_tail(conv_w, conv_b, xBC_raw):
+    """The prefill's conv: ``(activated xBC, the last K-1 raw inputs,
+    zero-padded on the left)``."""
+    T = xBC_raw.shape[1]
+    tail = F.pad(xBC_raw, (0, 0, CONV_K - 1 - min(T, CONV_K - 1), 0)
+                 )[:, -(CONV_K - 1):]
+    return _causal_conv(conv_w, conv_b, xBC_raw)[0], tail
 
 
 def mamba2_forward_with_state(
@@ -141,11 +153,15 @@ def mamba2_forward_with_state(
     decode continues from."""
     B, T, _ = x.shape
     h, hd, n = spec.heads, spec.head_dim, spec.n_state
-    z, xBC_raw, dt = _split_proj(spec, x @ p.in_proj)
-    conv_tail = F.pad(xBC_raw, (0, 0, CONV_K - 1 - min(T, CONV_K - 1), 0)
-                      )[:, -(CONV_K - 1):]
-    xBC, _ = _causal_conv(p, xBC_raw)
-    xs = xBC[..., :spec.d_inner].reshape(B, T, h, hd)
+    z, xBC_raw, dt = _split_proj(spec, linear(x, p.in_proj))
+    conv = _conv_with_tail
+    mesh = find_mesh(xBC_raw)
+    if mesh is not None:   # per lane: each rank convolves its own lanes
+        dp, _ = attention_axes(mesh, B, 1)
+        lanes = (dp, None, None)
+        conv = shard_map(conv, mesh, ((None, None), (None,), lanes), lanes)
+    xBC, conv_tail = conv(p.conv_w, p.conv_b, xBC_raw)
+    xs = fit_split(xBC[..., :spec.d_inner], -1, h).reshape(B, T, h, hd)
     Bmat = xBC[..., spec.d_inner:spec.d_inner + n]                  # [B, T, n]
     Cmat = xBC[..., spec.d_inner + n:]                              # [B, T, n]
     A = -torch.exp(p.A_log.to(F32))                                 # [h]
@@ -175,8 +191,9 @@ def mamba2_decode_step(
     B = x.shape[0]
     h, hd, n = spec.heads, spec.head_dim, spec.n_state
     z, xBC, dt = _split_proj(spec, x[:, None] @ p.in_proj)
-    xBC, new_conv = _causal_conv(p, xBC, conv_state=state.conv)
-    xs = xBC[:, 0, :spec.d_inner].reshape(B, h, hd)
+    xBC, new_conv = _causal_conv(p.conv_w, p.conv_b, xBC,
+                                 conv_state=state.conv)
+    xs = fit_split(xBC[:, 0, :spec.d_inner], -1, h).reshape(B, h, hd)
     Bmat = xBC[:, 0, spec.d_inner:spec.d_inner + n]
     Cmat = xBC[:, 0, spec.d_inner + n:]
     A = -torch.exp(p.A_log.to(F32))

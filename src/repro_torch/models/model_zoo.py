@@ -176,23 +176,26 @@ def params_to_numpy(params) -> dict:
 # --------------------------------------------------------------------------
 
 def forward_train(params, cfg: ArchConfig, batch: Mapping,
-                  remat: bool = True) -> torch.Tensor:
+                  remat: bool = True, hints=None) -> torch.Tensor:
     """Logits ``[B, S, V]`` (S counts a vlm batch's patch rows) on the
     training route: every attention call site through ``mea_attention``
     (the flash kernel has no backward) and, with ``remat``, each layer
-    under activation checkpointing."""
+    under activation checkpointing.  ``hints``: :func:`forward`'s."""
     return forward(params, batch["tokens"],
                    prefix_embeds=batch.get("patches"),
                    encoder_frames=batch.get("frames"),
-                   differentiable=True, remat=remat)
+                   differentiable=True, remat=remat, hints=hints)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: Mapping, remat: bool = True,
-            chunk_rows: Optional[int] = None):
+            chunk_rows: Optional[int] = None, hints=None):
     """Next-token cross entropy; labels equal to ``IGNORE_LABEL`` are
     masked.  Returns ``(loss, {"loss", "tokens"})``, as the JAX
-    ``loss_fn``; ``chunk_rows``: :func:`softmax_cross_entropy`'s."""
-    logits = forward_train(params, cfg, batch, remat=remat)
+    ``loss_fn``; ``chunk_rows``: :func:`softmax_cross_entropy`'s.
+    ``hints`` shard the logits' vocab over ``model`` on a mesh."""
+    logits = forward_train(params, cfg, batch, remat=remat, hints=hints)
+    if hints is not None:
+        logits = hints.logits(logits)
     labels = batch["labels"]
     if cfg.family == "vlm":  # logits cover [prefix + tokens]; labels tokens
         logits = logits[:, -labels.shape[1]:]

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import fit_split, grad_fit, linear
 from .layers import LayerNorm, dense_init, layernorm
 from .linear_attention import (chunked_linear_attention,
                                linear_attention_decode_step)
@@ -125,18 +126,19 @@ def _projections(tm: TimeMix, x: torch.Tensor, xs: torch.Tensor):
     """r, k, v, g and the f32 log-decay ``-exp(base + tanh(wx A) B)``
     (< 0) of the mixed inputs."""
     m = tm.mix
-    r = _mix(x, xs, m[0]) @ tm.wr
-    k = _mix(x, xs, m[1]) @ tm.wk
-    v = _mix(x, xs, m[2]) @ tm.wv
-    g = _mix(x, xs, m[3]) @ tm.wg
-    lora = torch.tanh(_mix(x, xs, m[4]) @ tm.decay_lora_a) @ tm.decay_lora_b
+    r = linear(_mix(x, xs, m[0]), tm.wr)
+    k = linear(_mix(x, xs, m[1]), tm.wk)
+    v = linear(_mix(x, xs, m[2]), tm.wv)
+    g = linear(_mix(x, xs, m[3]), tm.wg)
+    lora = linear(torch.tanh(linear(_mix(x, xs, m[4]), tm.decay_lora_a)),
+                  tm.decay_lora_b)
     log_decay = -torch.exp(tm.decay_base.float() + lora.float())
     return r, k, v, g, log_decay
 
 
 def _out(tm: TimeMix, y: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
     y = layernorm(tm.ln_out, y.to(dtype))
-    return (y * F.silu(g)) @ tm.wo
+    return linear(y * F.silu(g), tm.wo)
 
 
 def rwkv6_time_mix(tm: TimeMix, spec: RWKV6Spec, x: torch.Tensor,
@@ -146,21 +148,22 @@ def rwkv6_time_mix(tm: TimeMix, spec: RWKV6Spec, x: torch.Tensor,
     B, T, d = x.shape
     h, hd = spec.heads, spec.head_dim
     r, k, v, g, log_decay = _projections(tm, x, _token_shift(x, shift_prev))
+    r, k, v, log_decay = (fit_split(t, -1, h).reshape(B, T, h, hd)
+                          for t in (r, k, v, log_decay))
     y, final = chunked_linear_attention(
-        r.reshape(B, T, h, hd), k.reshape(B, T, h, hd),
-        v.reshape(B, T, h, hd), log_decay.reshape(B, T, h, hd),
+        r, k, v, log_decay,
         strict=True, shifted=True, bonus=tm.bonus_u,
         initial_state=initial_state)
-    return _out(tm, y.reshape(B, T, d), g, x.dtype), final
+    return _out(tm, grad_fit(y.reshape(B, T, d), -1, h), g, x.dtype), final
 
 
 def rwkv6_channel_mix(cm: ChannelMix, x: torch.Tensor,
                       shift_prev: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     xs = _token_shift(x, shift_prev)
-    k = _mix(x, xs, cm.mix[0]) @ cm.wk
-    r = _mix(x, xs, cm.mix[1]) @ cm.wr
-    return torch.sigmoid(r) * (F.relu(k).square() @ cm.wv)
+    k = linear(_mix(x, xs, cm.mix[0]), cm.wk)
+    r = linear(_mix(x, xs, cm.mix[1]), cm.wr)
+    return torch.sigmoid(r) * linear(F.relu(k).square(), cm.wv)
 
 
 class RWKV6DecodeState(NamedTuple):
@@ -176,10 +179,10 @@ def rwkv6_time_mix_step(tm: TimeMix, spec: RWKV6Spec, x: torch.Tensor,
     B, d = x.shape
     h, hd = spec.heads, spec.head_dim
     r, k, v, g, log_decay = _projections(tm, x, state.tm_prev[:, 0])
+    r, k, v, log_decay = (fit_split(t, -1, h).reshape(B, h, hd)
+                          for t in (r, k, v, log_decay))
     new_wkv, y = linear_attention_decode_step(
-        state.wkv, r.reshape(B, h, hd), k.reshape(B, h, hd),
-        v.reshape(B, h, hd), log_decay.reshape(B, h, hd), strict=True,
-        bonus=tm.bonus_u)
+        state.wkv, r, k, v, log_decay, strict=True, bonus=tm.bonus_u)
     return _out(tm, y.reshape(B, d), g, x.dtype), new_wkv, x[:, None]
 
 

@@ -57,6 +57,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.hints import current_hints, use_hints
+from ..distributed.sharding import embed_lookup, heads_local, linear
 from ..kernels.flash_attention.ops import flash_attention_op
 from . import mamba2 as m2
 from . import moe as mo
@@ -82,14 +84,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``[B, Tq, H, hd]`` attention at one call site: the flash kernel for
     CUDA tensors, ``mea_attention`` for CPU tensors and, with
     ``differentiable``, on either device (the kernel has no backward).
-    ``window=None`` is no window."""
+    ``window=None`` is no window.  On a mesh each rank attends over its
+    lanes and KV heads (:func:`~repro_torch.distributed.sharding
+    .heads_local`)."""
     if q.device.type == "cuda" and not differentiable:
         return flash_attention_op(
             q, k, v, causal=causal,
             window=FULL_WINDOW if window is None else window,
             q_offset=q_offset)
-    return mea_attention(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+    return heads_local(partial(mea_attention, causal=causal, window=window,
+                               q_offset=q_offset), q, k, v)
 
 
 def _run_block(remat: bool, fn, x: torch.Tensor):
@@ -199,8 +203,8 @@ class _LM(nn.Module):
         """Final norm + vocab projection."""
         x = apply_norm(self.cfg.norm, self.final_norm, x)
         if self.cfg.tie_embeddings:
-            return x @ self.embed.T
-        return x @ self.unembed
+            return linear(x, self.embed.T)
+        return linear(x, self.unembed)
 
 
 def _check_family(cfg: ArchConfig, families: tuple,
@@ -250,14 +254,16 @@ class DenseLM(_LM):
             raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
                              "plain attention families without vlm/encoder "
                              f"prefixes (family={self.cfg.family!r})")
-        x = self.embed[tokens.long()]
+        x = embed_lookup(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         ks, vs = [], []
+        hints = current_hints()
         for li, (lp, window) in enumerate(zip(self.layers,
                                               layer_windows(self.cfg))):
             pkv = None if prefix_kv is None \
                 else (prefix_kv[0][li], prefix_kv[1][li])
+            x = hints.residual(x)
             x, (k, v) = _run_block(remat, partial(
                 _attn_block_seq, self.cfg, lp, window=window,
                 q_offset=pos_offset, prefix_kv=pkv,
@@ -337,9 +343,11 @@ class HybridLM(_LM):
 
     def _run(self, tokens: torch.Tensor, differentiable: bool = False,
              remat: bool = False):
-        x = self.embed[tokens.long()]
+        x = embed_lookup(self.embed, tokens)
         ks, vs, ssms, convs = [], [], [], []
+        hints = current_hints()
         for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
+            x = hints.residual(x)
             x, kv, ssm, conv = _run_block(remat, partial(
                 _hybrid_layer, self.cfg, self.spec, layer,
                 self.shared_attn if flag else None,
@@ -449,9 +457,11 @@ class RWKV6LM(_LM):
         return self._run(tokens)[1]
 
     def _run(self, tokens: torch.Tensor, remat: bool = False):
-        x = self.embed[tokens.long()]
+        x = embed_lookup(self.embed, tokens)
         wkvs, tms, cms = [], [], []
+        hints = current_hints()
         for layer in self.layers:
+            x = hints.residual(x)
             x, wkv, tm_last, cm_last = _run_block(
                 remat, partial(_rwkv6_layer, self.spec, layer), x)
             wkvs.append(wkv)
@@ -496,10 +506,9 @@ class CrossBlock(nn.Module):
 def cross_kv(cfg: ArchConfig, cp: CrossBlock, enc_out: torch.Tensor):
     """The encoder output's cross K/V, each ``[B, F, KV, hd]``."""
     hd = cfg.resolved_head_dim
-    return ((enc_out @ cp.wk).reshape(*enc_out.shape[:-1], cfg.num_kv_heads,
-                                      hd),
-            (enc_out @ cp.wv).reshape(*enc_out.shape[:-1], cfg.num_kv_heads,
-                                      hd))
+    lead = enc_out.shape[:-1]
+    return (linear(enc_out, cp.wk).reshape(*lead, cfg.num_kv_heads, hd),
+            linear(enc_out, cp.wv).reshape(*lead, cfg.num_kv_heads, hd))
 
 
 def cross_residual(cfg: ArchConfig, cp: CrossBlock, x: torch.Tensor,
@@ -508,8 +517,8 @@ def cross_residual(cfg: ArchConfig, cp: CrossBlock, x: torch.Tensor,
     """``x [B, T, d]`` plus its non-causal attention over ``enc_out [B,
     F, d]``.  ``differentiable``: :func:`attention`'s."""
     h = apply_norm(cfg.norm, cp.ln, x)
-    q = (h @ cp.wq).reshape(*h.shape[:-1], cfg.num_heads,
-                            cfg.resolved_head_dim)
+    q = linear(h, cp.wq).reshape(*h.shape[:-1], cfg.num_heads,
+                                 cfg.resolved_head_dim)
     k, v = cross_kv(cfg, cp, enc_out)
     return x + out_project(cp.wo, attention(q, k, v, causal=False,
                                             differentiable=differentiable))
@@ -578,10 +587,12 @@ class WhisperLM(_LM):
 
     def _decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 differentiable: bool = False, remat: bool = False):
-        x = self.embed[tokens.long()]
+        x = embed_lookup(self.embed, tokens)
         x = x + self.dec_pos[:x.shape[1]].to(x.dtype)
         ks, vs = [], []
+        hints = current_hints()
         for lp, cp in zip(self.layers, self.cross_layers):
+            x = hints.residual(x)
             x, (k, v) = _run_block(remat, partial(
                 _whisper_decoder_layer, self.cfg, lp, cp, enc_out=enc_out,
                 differentiable=differentiable), x)
@@ -615,16 +626,18 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator,
 def forward(params: _LM, tokens: torch.Tensor, return_kv: bool = False,
             prefix_kv=None, pos_offset: int = 0, prefix_embeds=None,
             encoder_frames=None, differentiable: bool = False,
-            remat: bool = False):
+            remat: bool = False, hints=None):
     """Full-sequence logits (and per-layer K/V with ``return_kv``); see
     :meth:`DenseLM.forward` for the cached prefix and the vlm patch
     prefix (``prefix_embeds``, which only the dense and vlm families
     take) and :meth:`WhisperLM.forward` for ``encoder_frames``.
     ``differentiable`` and ``remat`` make it the training forward (module
-    docstring)."""
+    docstring).  ``hints`` (else the ambient ones) put each layer's input
+    residual stream in sequence-sharded layout on a mesh."""
     extra = {} if prefix_embeds is None else {"prefix_embeds": prefix_embeds}
     if encoder_frames is not None:
         extra["encoder_frames"] = encoder_frames
-    return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
-                  pos_offset=pos_offset, differentiable=differentiable,
-                  remat=remat, **extra)
+    with use_hints(hints if hints is not None else current_hints()):
+        return params(tokens, return_kv=return_kv, prefix_kv=prefix_kv,
+                      pos_offset=pos_offset, differentiable=differentiable,
+                      remat=remat, **extra)

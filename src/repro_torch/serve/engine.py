@@ -73,6 +73,9 @@ from ..alloc.eviction import get_eviction
 from ..core import paged_kv as pkv
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
+from ..distributed.hints import ShardingHints
+from ..distributed.sharding import (distribute_batch, distribute_state,
+                                    local_tree)
 from ..models.decode import RecurrentState, init_recurrent_state
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
@@ -229,6 +232,23 @@ def run_admission(eng: "ServingEngine", sched, preemption: bool = False,
     return True
 
 
+def _on_mesh(cfg: ArchConfig, mesh, decode, prefill):
+    """The engine's decode and prefill on a one-rank mesh: the state and
+    batch are placed on every call (no copy: each shard is whole) and the
+    outputs come back as local tensors."""
+    if mesh.size() != 1:
+        raise NotImplementedError(
+            f"a ServingEngine runs on a one-rank mesh (its admission and "
+            f"release act on whole tensors); {mesh} has {mesh.size()}")
+
+    def on_decode(params, state):
+        return local_tree(decode(params, distribute_state(cfg, mesh, state)))
+
+    def on_prefill(params, batch):
+        return local_tree(prefill(params, distribute_batch(cfg, mesh, batch)))
+    return on_decode, on_prefill
+
+
 class ServingEngine:
     """Continuous-batching engine; lanes are slots in the running batch.
 
@@ -240,6 +260,14 @@ class ServingEngine:
     hit admission mode (the JAX package's defaults: ``lru``, ``copy``).
     ``alloc_policy`` names the allocator policy of the engine's own
     service; a shard installed with ``tenants`` runs its service's.
+
+    ``hints`` (:class:`~repro_torch.distributed.hints.ShardingHints` over
+    a mesh) runs the decode and prefill steps on that mesh: the caller
+    places ``params`` with :func:`~repro_torch.distributed.sharding
+    .distribute_params`, and each step places the engine's state and batch
+    (:func:`~repro_torch.distributed.sharding.distribute_state`) and
+    takes the local shards back.  The engine's own admission, release and
+    checks act on whole tensors, so the mesh must have one rank.
     """
 
     def __init__(self, cfg: ArchConfig, kvcfg: PagedKVConfig,
@@ -253,7 +281,8 @@ class ServingEngine:
                  eviction: str = "lru",
                  cache_pages: Optional[int] = None,
                  prefix_alias: str = "copy",
-                 alloc_policy: str = "freelist"):
+                 alloc_policy: str = "freelist",
+                 hints: Optional[ShardingHints] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kvcfg = kvcfg
@@ -299,8 +328,12 @@ class ServingEngine:
             enc_out=init_enc_out(cfg, kvcfg.max_lanes, params.embed.dtype,
                                  self.device))
         self._decode = make_decode_step(cfg, kvcfg, self.tenants,
-                                        defer_refill=defer_refill)
-        self._prefill = make_family_prefill(cfg)
+                                        defer_refill=defer_refill,
+                                        hints=hints)
+        self._prefill = make_family_prefill(cfg, hints=hints)
+        if hints is not None and hints.mesh is not None:
+            self._decode, self._prefill = _on_mesh(
+                cfg, hints.mesh, self._decode, self._prefill)
         # the page-recycling window (swa), which the decode step's burst
         # and the multi-engine window's flushes follow
         self.window = recycle_window(cfg)

@@ -28,7 +28,9 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.paged_kv import (PagedKVConfig, PagedKVState, PagedTenants,
                              PendingDecodeOps, decode_append,
-                             empty_decode_stats, init_paged_kv)
+                             empty_decode_stats, init_paged_kv, paged_tenants)
+from ..distributed.hints import ShardingHints, use_hints
+from ..distributed.sharding import replicated
 from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
                              init_recurrent_state)
 from ..models.transformer import forward, recycle_window
@@ -105,8 +107,19 @@ def init_serve_state(
                       enc_out=init_enc_out(cfg, lanes, kvcfg.dtype, dev))
 
 
+def abstract_serve_state(cfg: ArchConfig, kvcfg: PagedKVConfig, lanes: int,
+                         prefilled_len: int) -> tuple[ServeState, PagedTenants]:
+    """:func:`init_serve_state` on the ``meta`` device (the dry run: shapes
+    and dtypes, no storage), with the tenants its decode step commits
+    to."""
+    tenants = paged_tenants(kvcfg, "meta")
+    return init_serve_state(cfg, kvcfg, lanes, tenants, prefilled_len), \
+        tenants
+
+
 def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
-                     tenants: PagedTenants, defer_refill: bool = False):
+                     tenants: PagedTenants, defer_refill: bool = False,
+                     hints: Optional[ShardingHints] = None):
     """Returns ``serve_step(params, state) -> (state, logits,
     DecodeStats)``, plus the step's
     :class:`~repro_torch.core.paged_kv.PendingDecodeOps` with
@@ -118,15 +131,23 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     returns all-zero stats (and no deferred refill).  Under ``swa`` the
     burst also recycles the pages behind the window
     (:func:`recycle_window`).
+
+    ``hints`` (a :class:`~repro_torch.distributed.hints.ShardingHints`
+    over a mesh) runs the step on ``DTensor`` parameters and state placed
+    by :mod:`repro_torch.distributed.sharding`, with the hints ambient.
     """
     window = recycle_window(cfg)
 
     def serve_step(params, state: ServeState):
+        with use_hints(hints):
+            return _serve_step(params, state)
+
+    def _serve_step(params, state: ServeState):
         hidden, new_kv, rec = decode_hidden(
             params, cfg, state.paged, state.tokens, state.rec,
-            state.enc_out)
+            state.enc_out, hints=hints)
         logits = decode_logits(params, hidden)
-        next_tokens = logits.argmax(dim=-1).to(I32)
+        next_tokens = replicated(logits).argmax(dim=-1).to(I32)
         if new_kv is not None:
             paged, *rest = decode_append(kvcfg, state.paged, *new_kv,
                                          tenants, defer_refill=defer_refill,
@@ -159,7 +180,8 @@ class PrefillResult(NamedTuple):
     enc_out: Optional[torch.Tensor] = None
 
 
-def make_family_prefill(cfg: ArchConfig):
+def make_family_prefill(cfg: ArchConfig,
+                        hints: Optional[ShardingHints] = None):
     """Returns ``prefill(params, batch) -> PrefillResult`` for a batch of
     right-padded ``tokens [B, T]`` with real ``lengths [B]`` (causal
     masking keeps the padding invisible to the real positions).
@@ -181,9 +203,15 @@ def make_family_prefill(cfg: ArchConfig):
     A prefix-cache hit adds ``prefix_k`` / ``prefix_v``, each ``[B, L, P,
     KV, hd]``: the cached K/V of absolute positions ``[0, P)``.  ``tokens``
     are then the uncached suffix, ``lengths`` count suffix tokens, and
-    logits and K/V come back for the suffix alone."""
+    logits and K/V come back for the suffix alone.
+
+    ``hints``: :func:`make_decode_step`'s."""
 
     def prefill(params, batch: dict) -> PrefillResult:
+        with use_hints(hints):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch: dict) -> PrefillResult:
         toks = batch["tokens"]
         if cfg.family == "ssm":
             wkv, tm, cm = params.prefill(toks)
@@ -217,3 +245,27 @@ def make_family_prefill(cfg: ArchConfig):
                              enc_out=enc_out)
 
     return prefill
+
+
+def make_prefill_step(cfg: ArchConfig, hints: Optional[ShardingHints] = None):
+    """The dry run's prefill: ``(params, batch) -> (logits [B, 1, V] at the
+    last position, (k, v) [L, B, S, KV, hd] or None)`` over
+    :func:`make_family_prefill` (the JAX package's historical contract).
+    A batch without ``lengths`` is full-length; the recurrent families
+    return no logits (their admission reads none) and the hybrid no K/V,
+    as in the JAX step."""
+    fam = make_family_prefill(cfg, hints=hints)
+
+    def prefill_step(params, batch: dict):
+        if "lengths" not in batch:
+            B, T = batch["tokens"].shape
+            batch = dict(batch, lengths=torch.full(
+                (B,), T, dtype=I32, device=batch["tokens"].device))
+        res = fam(params, batch)
+        kv = None
+        if res.kv is not None and cfg.family != "hybrid":
+            kv = (res.kv[0].transpose(0, 1), res.kv[1].transpose(0, 1))
+        last = None if res.last_logits is None else res.last_logits[:, None]
+        return last, kv
+
+    return prefill_step

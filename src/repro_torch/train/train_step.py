@@ -18,28 +18,41 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..distributed.compression import CompressionConfig, compress_decompress
+from ..distributed.hints import ShardingHints, use_hints
+from ..distributed.sharding import replicated
 from ..models.model_zoo import loss_fn
 from .optimizer import AdamW, AdamWState
 
 
-def _split_microbatches(batch: Mapping, accum: int) -> list[dict]:
+def _split_microbatches(batch: Mapping, accum: int, hints=None
+                        ) -> list[dict]:
     """``accum`` microbatches of the leading batch axis, in order (the JAX
-    package's ``reshape(accum, b // accum, ...)``)."""
+    package's ``reshape(accum, b // accum, ...)``, then ``hints
+    .microbatches``)."""
     for k, x in batch.items():
         if x.shape[0] % accum:
             raise ValueError(f"batch {x.shape[0]} of {k!r} not divisible by "
                              f"accum {accum}")
-    return [{k: x.reshape(accum, x.shape[0] // accum, *x.shape[1:])[i]
-             for k, x in batch.items()} for i in range(accum)]
+
+    def split(x):
+        # a batch sharded over its rows regroups them: whole, then split
+        x = replicated(x).reshape(accum, x.shape[0] // accum, *x.shape[1:])
+        return hints.microbatches(x) if hints is not None else x
+    mbs = {k: split(x) for k, x in batch.items()}
+    return [{k: x[i] for k, x in mbs.items()} for i in range(accum)]
 
 
 def make_train_step(cfg: ArchConfig, optimizer: AdamW, grad_accum: int = 1,
                     remat: bool = True,
-                    compression: Optional[CompressionConfig] = None):
+                    compression: Optional[CompressionConfig] = None,
+                    hints: Optional[ShardingHints] = None):
+    """``hints`` run the step on ``DTensor`` parameters, optimizer state
+    and batch placed by :mod:`repro_torch.distributed.sharding`, with the
+    hints ambient (the MoE dispatch reads them)."""
     def grads_of(params, named, mb):
         for _, p in named:
             p.grad = None
-        loss, metrics = loss_fn(params, cfg, mb, remat=remat)
+        loss, metrics = loss_fn(params, cfg, mb, remat=remat, hints=hints)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in named}
@@ -48,16 +61,20 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW, grad_accum: int = 1,
         return loss.detach(), metrics, grads
 
     def train_step(params, opt_state: AdamWState, batch: Mapping):
+        with use_hints(hints):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state: AdamWState, batch: Mapping):
         named = list(params.named_parameters())
         if grad_accum == 1:
             loss, metrics, grads = grads_of(params, named, batch)
             metrics = dict(metrics, loss=loss)
         else:
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for n, p in named}
+            acc = {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in named}
             lsum = torch.zeros((), dtype=torch.float32,
                                device=named[0][1].device)
-            for mb in _split_microbatches(batch, grad_accum):
+            for mb in _split_microbatches(batch, grad_accum, hints):
                 l, _, g = grads_of(params, named, mb)
                 for n in acc:
                     acc[n] += g[n].float()

@@ -103,7 +103,9 @@ def test_port_has_its_modules():
                 "train/trainer.py", "launch/train.py", "sim/workloads.py",
                 "sim/policies.py", "sim/cachemodel.py", "sim/costmodel.py",
                 "sim/engine.py", "kernels/sim_trace/ref.py",
-                "kernels/sim_trace/ops.py"):
+                "kernels/sim_trace/ops.py", "distributed/sharding.py",
+                "distributed/hints.py", "launch/mesh.py", "launch/dryrun.py",
+                "launch/roofline.py"):
         assert mod in names, mod
 
 
