@@ -259,10 +259,27 @@ Phases, each failing loudly (non-zero exit, no result line):
                ``ok`` with no parameter shard above 1 GiB; prints each
                cell's roofline row (dry-run counts over datasheet peaks,
                not times) beside the card's line;
-9.  result   -- the card's line again, one JSON line describing the
+9.  examples -- the four examples a user runs first, each through its
+               ``main`` in-process on the card: ``torch_quickstart.py``
+               (all six parts with their asserts; its support-core
+               launches equal its free-list services' and engines'
+               commits and the replayed bursts, paged launches its
+               engine-steps x KV layers, flash launches its prefill passes
+               x KV layers, sim-trace launches its two sim replays; part
+               1's grants equal a CPU run's), ``torch_serve_paged.py``
+               (every request served), ``torch_train_lm.py`` (lm-100m, 60
+               steps of 8 x 256 tokens with a checkpoint at 50 and 60 in a
+               temporary directory: losses finite, their mean over the
+               second half below the initial weights' loss; median step
+               ms, tokens/s and peak memory recorded) and
+               ``torch_allocator_sim.py`` (one sim-trace launch a trace;
+               its printed table equal, character for character, to the
+               same script on the CPU); fails past 60 s;
+10. result   -- the card's line again, one JSON line describing the
                kernels (each kernel's launches also counted over the
-               training runs of 6b and 6c: none; over 8a's serve; the sim
-               kernel's over phase 7's main path), then the last line
+               training runs of 6b and 6c: none; over 8a's serve; over
+               phase 9's examples; the sim kernel's over phase 7's main
+               path and phase 9), then the last line
                ``{"ok": true, "device": {...}}``.
 
 Each phase's header line ends with the seconds since the run began.
@@ -271,12 +288,17 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import importlib.util
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3854,6 +3876,189 @@ def mesh_cells(procs: list, card: str) -> list:
     return rows
 
 
+EXAMPLES = ROOT / "examples"
+EXAMPLES_BUDGET_S = 60.0
+TRAIN_LM_STEPS = 60
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module, to call its ``main``."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", EXAMPLES / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels.sim_trace.ops import KERNEL as SIM_KERNEL
+    return dict(read_launches(), sim_trace=SIM_KERNEL.launches)
+
+
+def zero_all_launches() -> None:
+    from repro_torch.kernels.sim_trace.ops import KERNEL as SIM_KERNEL
+    zero_launches()
+    SIM_KERNEL.launches = 0
+
+
+def quickstart_want(q: dict) -> dict:
+    """The quickstart's launches as its services and engines count them:
+    a free-list commit or replayed burst is one support-core launch (the
+    bitmap and buddy policies run plain), an engine-step one paged launch
+    a KV layer, a prefill pass one flash launch a KV layer, a sim replay
+    one trace-kernel launch a policy."""
+    me = q["multi"]
+    if me.service.policy.name != "freelist" or \
+            q["replay"].bursts != q["trace"].bursts:
+        fail("9: the quickstart's open loop ran another policy than the "
+             "free list, or its replay skipped bursts")
+    if sum(e.stats.decode_steps for e in me.engines) != \
+            me.stats.decode_steps:
+        fail("9: the quickstart's shards' steps do not sum to the open "
+             "loop's engine-steps")
+    want = dict(support_core_burst=q["part1"]["freelist_commits"]
+                + q["replay"].bursts + me.stats.window_bursts,
+                paged_decode_attention=0, flash_attention=0,
+                sim_trace=len(q["sims"]))
+    for eng in (*q["engines"].values(), *me.engines):
+        s, L = eng.stats, eng.cfg.num_attn_layers
+        if eng.service.policy.name == "freelist":
+            want["support_core_burst"] += s.commits
+        want["paged_decode_attention"] += s.decode_steps * L
+        want["flash_attention"] += s.prefill_passes * L
+    return want
+
+
+def examples_phase(dev) -> dict:
+    """Phase 9: the four examples through their ``main`` on the card;
+    returns each one's launches (set to 0 just before it) and its
+    numbers."""
+    t0 = time.perf_counter()
+    out = {}
+
+    qs = load_example("quickstart")
+    zero_all_launches()
+    t = time.perf_counter()
+    q = qs.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = all_launches()
+    want = quickstart_want(q)
+    if launches != want:
+        fail(f"9: the quickstart's launches {launches}, expected {want} from "
+             f"its services' and engines' counters")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"9: the quickstart launched no {name}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_part1 = qs.part1_client_api(torch.device("cpu"))
+    if cpu_part1 != q["part1"]:
+        fail(f"9: part 1 on the card {q['part1']} != on the cpu {cpu_part1}")
+    rep, res = q["report"], q["replay"]
+    out["quickstart"] = dict(
+        launches=launches, wall_s=wall, losses=q["losses"],
+        p50_ttft_us=rep.p50_ttft_us, p99_ttft_us=rep.p99_ttft_us,
+        completed=rep.completed, windows=rep.windows,
+        trace_bursts=q["trace"].bursts, replay_wall_s=res.wall_s,
+        replay_bursts=res.bursts, compaction_moves=q["compaction_moves"])
+    print(f"  quickstart: {wall:.2f}s; part 1 grants card == cpu "
+          f"{cpu_part1['grants']}; launches {launches} == the services' and "
+          f"engines' counters; open loop TTFT p50/p99 "
+          f"{rep.p50_ttft_us:.0f}/{rep.p99_ttft_us:.0f} us; replay "
+          f"{res.bursts} bursts in {res.wall_s * 1e3:.1f} ms", flush=True)
+    del q
+
+    zero_all_launches()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        load_example("serve_paged").main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = all_launches()
+    print(buf.getvalue(), end="")
+    if "served 8 requests in " not in buf.getvalue() or \
+            "fails=0" not in buf.getvalue():
+        fail("9: torch_serve_paged.py did not serve all 8 requests")
+    for name in ("support_core_burst", "paged_decode_attention",
+                 "flash_attention"):
+        if launches[name] <= 0:
+            fail(f"9: torch_serve_paged.py launched no {name}")
+    out["serve_paged"] = dict(launches=launches, wall_s=wall)
+    print(f"  serve_paged: {wall:.2f}s; launches {launches}", flush=True)
+
+    zero_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    train_lm = load_example("train_lm")
+    vocab = train_lm.lm_config(small=False).vocab_size
+    with tempfile.TemporaryDirectory() as ckpt:
+        report = train_lm.main(
+            ["--steps", str(TRAIN_LM_STEPS), "--checkpoint-dir", ckpt,
+             "--device", "cuda"])
+        saved = sorted(p.name for p in Path(ckpt).iterdir())
+    wall = time.perf_counter() - t
+    launches = all_launches()
+    losses = report.losses
+    if report.steps_run != TRAIN_LM_STEPS or len(losses) != TRAIN_LM_STEPS \
+            or not all(map(math.isfinite, losses)):
+        fail(f"9: torch_train_lm.py ran {report.steps_run} steps, losses "
+             f"{losses}")
+    # the corpus is uniform tokens: the loss can fall only from the
+    # initial weights' to ln(vocab), which takes ~150 steps at this rate
+    tail = statistics.mean(losses[TRAIN_LM_STEPS // 2:])
+    if not tail < losses[0]:
+        fail(f"9: lm-100m's loss did not fall: {losses[0]:.4f} at the "
+             f"initial weights, a mean of {tail:.4f} over the second half")
+    if any(launches.values()):
+        fail(f"9: training launched a kernel {launches} (its route is the "
+             f"plain attention)")
+    med = statistics.median(report.step_times_ms)
+    tps = 8 * 256 / (med / 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["train_lm"] = dict(launches=launches, wall_s=wall, losses=losses,
+                           median_step_ms=med, tokens_per_s=tps,
+                           peak_gib=peak, checkpoints=saved)
+    print(f"  train_lm: lm-100m {TRAIN_LM_STEPS} steps in {wall:.2f}s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the second half "
+          f"{tail:.4f}; ln {vocab} = {math.log(vocab):.4f}), median step "
+          f"{med:.2f} ms, "
+          f"{tps:.1f} tokens/s, peak {peak:.2f} GiB above the phase's "
+          f"start, checkpoints {saved}", flush=True)
+    del report
+
+    from repro_torch.sim import engine as sim_engine
+    sim_ex = load_example("allocator_sim")
+    sim_engine._cached_counts.cache_clear()
+    zero_all_launches()
+    t = time.perf_counter()
+    card_table = sim_ex.main(["--device", "cuda"])
+    wall = time.perf_counter() - t
+    launches = all_launches()
+    traces = sim_engine._cached_counts.cache_info().misses
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_table = sim_ex.main(["--device", "cpu"])
+    if card_table != cpu_table:
+        fail("9: torch_allocator_sim.py's table differs between the card "
+             "and the cpu")
+    if launches != dict(support_core_burst=0, paged_decode_attention=0,
+                        flash_attention=0, sim_trace=traces) or not traces:
+        fail(f"9: torch_allocator_sim.py launched {launches}, expected one "
+             f"sim_trace launch for each of its {traces} traces")
+    out["allocator_sim"] = dict(launches=launches, wall_s=wall)
+    print(f"  allocator_sim: {wall:.2f}s; {traces} traces, one launch "
+          f"each; the table card == cpu, character for character",
+          flush=True)
+
+    seconds = time.perf_counter() - t0
+    print(f"  phase 9: {seconds:.1f}s")
+    if seconds > EXAMPLES_BUDGET_S:
+        fail(f"9: the examples took {seconds:.1f}s, over the phase's "
+             f"{EXAMPLES_BUDGET_S:.0f}s budget")
+    return dict(runs=out, seconds=seconds)
+
+
 T_START = time.perf_counter()
 
 
@@ -4095,7 +4300,20 @@ def run_phases(dev, card: str, mesh_procs: list) -> None:
     print(json.dumps({"mesh": {"one_rank_serve": sharded, "dry_run": dry,
                                "cells": cells}}))
 
-    banner("9. result")
+    banner("9. the four examples on the card: torch_quickstart.py, "
+           "torch_serve_paged.py, torch_train_lm.py (lm-100m, 60 steps), "
+           "torch_allocator_sim.py")
+    examples = examples_phase(dev)
+    sim["launches_by_run"] = {"7. sim": sim["launches"]}
+    for name, run in examples["runs"].items():
+        launches_run = run.pop("launches")
+        sim["launches_by_run"][f"example {name}"] = launches_run.pop(
+            "sim_trace")
+        served[f"example {name}"] = dict(launches=launches_run)
+    sim["launches"] = sum(sim["launches_by_run"].values())
+    print(json.dumps({"examples": examples}))
+
+    banner("10. result")
     print(card)            # again here, where a tail of the output keeps it
 
     def launches(name):

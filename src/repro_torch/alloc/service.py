@@ -96,9 +96,26 @@ class BurstStats(NamedTuple):
     queue_live: torch.Tensor       # non-NOP slots in the built queue
     queue_capacity: torch.Tensor   # queue capacity
 
+    # forwarders so BurstStats reads like the StepStats it extends
+    @property
+    def mallocs(self):
+        return self.core.mallocs
+
+    @property
+    def frees(self):
+        return self.core.frees
+
     @property
     def failed(self):
         return self.core.failed
+
+    @property
+    def blocks_allocated(self):
+        return self.core.blocks_allocated
+
+    @property
+    def blocks_freed(self):
+        return self.core.blocks_freed
 
 
 class BurstResult(NamedTuple):

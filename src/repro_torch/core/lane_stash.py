@@ -30,6 +30,10 @@ class LaneStashState(NamedTuple):
     def size(self) -> int:
         return self.pages.shape[1]
 
+    @property
+    def max_lanes(self) -> int:
+        return self.pages.shape[0]
+
 
 def validate_stash_params(size: int, watermark: int, refill: int) -> None:
     """A refill must always fit above the watermark (grants are

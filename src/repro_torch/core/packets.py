@@ -51,6 +51,10 @@ class ResponseQueue(NamedTuple):
     blocks: torch.Tensor   # [Q, R] int32
     status: torch.Tensor   # [Q] int32
 
+    @property
+    def capacity(self) -> int:
+        return self.status.shape[0]
+
 
 def empty_queue(capacity: int, device: torch.device | str = "cpu"
                 ) -> RequestQueue:

@@ -65,6 +65,12 @@ from .support_core import StepStats
 
 I32 = torch.int32
 
+#: Size classes of an engine's own service: ``kv_pages`` is class 0 and
+#: ``state_slots``, when configured, class 1.  On a shared service a
+#: tenant's class is its handle's ``size_class``, never these constants.
+KV_CLASS = 0
+STATE_CLASS = 1
+
 #: Tenant names the paged KV registers on its service, in class order.
 KV_TENANT = "kv_pages"
 STATE_TENANT = "state_slots"
@@ -101,6 +107,10 @@ class PagedKVConfig:
             validate_stash_params(self.stash_size, self.stash_watermark,
                                   self.stash_refill)
 
+    @property
+    def tokens_capacity(self) -> int:
+        return self.num_pages * self.page_size
+
 
 class PagedKVState(NamedTuple):
     alloc: FreeListState          # segregated metadata (support-core owned)
@@ -129,6 +139,23 @@ class DecodeStats(NamedTuple):
     stash_depth_hist: torch.Tensor  # [stash_size + 1] active-lane histogram
     queue_live: torch.Tensor
     queue_capacity: torch.Tensor
+
+    # forwarders so DecodeStats reads like the StepStats it extends
+    @property
+    def mallocs(self):
+        return self.core.mallocs
+
+    @property
+    def frees(self):
+        return self.core.frees
+
+    @property
+    def blocks_allocated(self):
+        return self.core.blocks_allocated
+
+    @property
+    def blocks_freed(self):
+        return self.core.blocks_freed
 
 
 class PagedTenants(NamedTuple):

@@ -4,14 +4,13 @@
   ``repro.kernels.paged_attention.ref.paged_attention_ref``: the current
   token is already in the cache, positions ``seq_len - window < pos <=
   seq_len`` are valid.
-* :func:`paged_decode_attention` -- the serving decode's attention (port
-  of ``repro.models.decode.paged_decode_attention``): cached slots
-  ``pos < seq_len`` of the gathered pages plus the token's own K/V as an
-  appended self column, inactive lanes give zeros.  It runs the chunked
-  scan of :func:`repro_torch.models.attention.mea_attention`, as the JAX
-  decode does.
 * :func:`paged_attention_plain` -- the kernel's plain version with the
-  op's arguments, choosing between the two by the self mode.
+  op's arguments: :func:`paged_attention_ref`, or in the self mode the
+  serving decode's attention over the gathered pages,
+  :func:`repro_torch.models.decode.paged_decode_attention` (cached slots
+  ``pos < seq_len`` plus the token's own K/V as an appended self column,
+  inactive lanes give zeros, the chunked scan of ``mea_attention``, as
+  the JAX decode does).
 * :func:`paged_attention_split` -- the kernel's split-and-merge
   arithmetic in plain PyTorch: per-chunk softmax states ``(m, l, acc)``
   in f32, merged in split order (both modes).
@@ -24,7 +23,7 @@ from typing import Optional
 import torch
 
 from ...core.packets import NO_BLOCK
-from ...models.attention import NEG_INF, mea_attention
+from ...models.attention import NEG_INF
 
 
 def paged_attention_ref(
@@ -63,33 +62,6 @@ def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
     return pages[safe].reshape(B, P * pages.shape[1], *pages.shape[2:])
 
 
-def paged_decode_attention(
-    q: torch.Tensor,          # [B, H, hd] new token queries
-    k_gath: torch.Tensor,     # [B, S, KV, hd] gathered pages
-    v_gath: torch.Tensor,
-    k_new: torch.Tensor,      # [B, KV, hd] this token's K (not yet in cache)
-    v_new: torch.Tensor,
-    seq_lens: torch.Tensor,   # [B] tokens already in cache
-    active: torch.Tensor,     # [B] bool
-    window: int,
-) -> torch.Tensor:
-    """Attention of each lane's new token over its cached slots
-    ``pos < seq_len`` plus an appended self column at ``pos == seq_len``."""
-    B, S = k_gath.shape[:2]
-    dev = q.device
-    k = torch.cat([k_gath, k_new[:, None]], dim=1)
-    v = torch.cat([v_gath, v_new[:, None]], dim=1)
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-    pos = torch.cat([pos, seq_lens[:, None]], dim=1)              # [B, S+1]
-    is_self = torch.arange(S + 1, device=dev) == S
-    valid = torch.where(is_self[None, :], True, pos < seq_lens[:, None])
-    valid = valid & (pos > seq_lens[:, None] - window)
-    valid = valid & active[:, None]
-    out = mea_attention(q[:, None], k, v, causal=False, window=None,
-                        kv_valid=valid, chunk=2048)
-    return out[:, 0]
-
-
 def paged_attention_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_tables: torch.Tensor, seq_lens: torch.Tensor, window: int,
@@ -100,6 +72,8 @@ def paged_attention_plain(
     """What the kernel computes, on any device: ``[B, H, hd]``; the self
     mode when ``k_self``/``v_self``/``active`` are given."""
     if k_self is not None:
+        # models.decode imports the op above this module: bind at call time
+        from ...models.decode import paged_decode_attention
         return paged_decode_attention(
             q, gather_pages(k_pages, block_tables),
             gather_pages(v_pages, block_tables), k_self, v_self, seq_lens,

@@ -105,3 +105,23 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
     out = torch.einsum("btkgs,bskd->btkgd", p, v.float())
     return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,            # [B, H, hd], one new token a lane
+    k: torch.Tensor,            # [B, S, KV, hd], the gathered cache
+    v: torch.Tensor,            # [B, S, KV, hd]
+    kv_valid: torch.Tensor,     # [B, S] bool
+    *,
+    window: Optional[int] = None,
+    seq_lens: Optional[torch.Tensor] = None,  # [B], for the window mask
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """Single-token attention over a masked cache; returns ``[B, H, hd]``."""
+    if window is not None and seq_lens is not None:
+        pos = torch.arange(k.shape[1], dtype=torch.int32,
+                           device=k.device)[None, :]
+        kv_valid = kv_valid & (pos > seq_lens[:, None] - 1 - window)
+    out = mea_attention(q[:, None], k, v, causal=False, window=None,
+                        kv_valid=kv_valid, chunk=chunk)
+    return out[:, 0]

@@ -37,12 +37,11 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.paged_kv import PagedKVState
-from ..distributed.sharding import embed_lookup
 from ..kernels.paged_attention.ops import paged_decode_attention_op
 from . import mamba2 as m2
 from . import rwkv6 as rw
-from .attention import FULL_WINDOW
-from .layers import apply_norm, apply_rope, out_project, qkv_project
+from .attention import FULL_WINDOW, mea_attention
+from .layers import apply_norm, apply_rope, embed, out_project, qkv_project
 from .transformer import (AttnBlock, cross_residual, hybrid_attn_flags,
                           hybrid_kv_slots, layer_windows, mlp_residual)
 
@@ -62,22 +61,55 @@ def init_recurrent_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
     ``dtype``); ``None`` for attention families."""
     L = cfg.num_layers
     if cfg.family == "hybrid":
-        spec = m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
-        return RecurrentState(
-            ssm=torch.zeros((L, batch, spec.heads, spec.n_state,
-                             spec.head_dim), dtype=torch.float32,
-                            device=device),
-            conv=torch.zeros((L, batch, m2.CONV_K - 1, spec.conv_dim),
-                             dtype=dtype, device=device))
+        st = m2.init_decode_state(
+            m2.make_spec(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim),
+            batch, dtype, device)
+        return RecurrentState(ssm=torch.stack([st.ssm] * L),
+                              conv=torch.stack([st.conv] * L))
     if cfg.family == "ssm":
-        hd = cfg.resolved_head_dim
-        prev = torch.zeros((L, batch, 1, cfg.d_model), dtype=dtype,
-                           device=device)
-        return RecurrentState(
-            ssm=torch.zeros((L, batch, cfg.d_model // hd, hd, hd),
-                            dtype=torch.float32, device=device),
-            tm_prev=prev, cm_prev=prev.clone())
+        st = rw.init_decode_state(
+            rw.RWKV6Spec(cfg.d_model, cfg.d_ff, cfg.resolved_head_dim),
+            batch, dtype, device)
+        return RecurrentState(ssm=torch.stack([st.wkv] * L),
+                              tm_prev=torch.stack([st.tm_prev] * L),
+                              cm_prev=torch.stack([st.cm_prev] * L))
     return None
+
+
+def paged_decode_attention(
+    q: torch.Tensor,          # [B, H, hd] new token queries
+    k_gath: torch.Tensor,     # [B, S, KV, hd] gathered pages
+    v_gath: torch.Tensor,
+    k_new: torch.Tensor,      # [B, KV, hd] this token's K (not yet in cache)
+    v_new: torch.Tensor,
+    seq_lens: torch.Tensor,   # [B] tokens already in cache
+    active: torch.Tensor,     # [B] bool
+    window: int,              # FULL_WINDOW = none
+    pos: Optional[torch.Tensor] = None,             # [B, S] (default arange)
+    gathered_valid: Optional[torch.Tensor] = None,  # [B, S] (windowed gather)
+) -> torch.Tensor:
+    """Attention of each lane's new token over its cached slots
+    ``pos < seq_len`` plus an appended self column at ``pos == seq_len``;
+    inactive lanes give zeros.  The paged kernel's plain version in its
+    self mode, on the gathered pages."""
+    B, S = k_gath.shape[:2]
+    dev = q.device
+    k = torch.cat([k_gath, k_new[:, None]], dim=1)
+    v = torch.cat([v_gath, v_new[:, None]], dim=1)
+    if pos is None:
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    pos = torch.cat([pos, seq_lens[:, None]], dim=1)              # [B, S+1]
+    is_self = torch.arange(S + 1, device=dev) == S
+    valid = torch.where(is_self[None, :], True, pos < seq_lens[:, None])
+    if gathered_valid is not None:
+        valid = valid & torch.cat(
+            [gathered_valid, torch.ones((B, 1), dtype=torch.bool,
+                                        device=dev)], dim=1)
+    valid = valid & (pos > seq_lens[:, None] - window)
+    valid = valid & active[:, None]
+    out = mea_attention(q[:, None], k, v, causal=False, window=None,
+                        kv_valid=valid, chunk=2048)
+    return out[:, 0]
 
 
 def _attn_layer_step(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
@@ -130,7 +162,7 @@ def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
     reads ``enc_out [B, F, d]``.  ``hints`` puts the embedded lanes over
     the data axes (the gathered KV's hint is the paged read's, ambient).
     """
-    x = embed_lookup(params.embed, tokens)
+    x = embed(params.embed, tokens)
     if hints is not None:
         x = hints.lanes(x)
     if cfg.family == "ssm":

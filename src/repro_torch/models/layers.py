@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import fit_split, grad_fit, linear
+from ..distributed.sharding import embed_lookup, fit_split, grad_fit, linear
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
@@ -140,6 +140,20 @@ def init_embedding(vocab: int, d: int, dtype: torch.dtype,
                    device: torch.device, gen: torch.Generator) -> torch.Tensor:
     w = torch.empty((vocab, d), dtype=torch.float32, device=device)
     return w.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table [V, d]`` for ``tokens`` (on a mesh each rank
+    looks up its own rows: :func:`~repro_torch.distributed.sharding
+    .embed_lookup`)."""
+    return embed_lookup(table, tokens)
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor, tied: bool
+            ) -> torch.Tensor:
+    """Logits of ``x [..., d]``: over the embedding table ``[V, d]`` when
+    ``tied``, else over the head ``[d, V]``."""
+    return linear(x, table_or_head.T if tied else table_or_head)
 
 
 def qkv_project(wq, wk, wv, x: torch.Tensor, num_heads: int,

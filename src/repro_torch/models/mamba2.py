@@ -142,15 +142,26 @@ def _conv_with_tail(conv_w, conv_b, xBC_raw):
     return _causal_conv(conv_w, conv_b, xBC_raw)[0], tail
 
 
+def mamba2_forward(
+    p: Mamba2,
+    spec: Mamba2Spec,
+    x: torch.Tensor,                 # [B, T, d_model]
+    initial_state: Optional[torch.Tensor] = None,   # [B, h, n, hd]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence SSD.  Returns ``(y [B, T, d_model], final_ssm_state
+    [B, h, n, hd] f32)``."""
+    y, final_state, _ = mamba2_forward_with_state(p, spec, x, initial_state)
+    return y, final_state
+
+
 def mamba2_forward_with_state(
     p: Mamba2,
     spec: Mamba2Spec,
     x: torch.Tensor,                 # [B, T, d_model]
     initial_state: Optional[torch.Tensor] = None,   # [B, h, n, hd]
 ):
-    """Full-sequence SSD.  Returns ``(y [B, T, d_model], final_ssm_state
-    [B, h, n, hd] f32, conv_tail [B, K-1, conv_dim])``: the two states a
-    decode continues from."""
+    """As :func:`mamba2_forward`, and also the conv tail ``[B, K-1,
+    conv_dim]``: the two states a decode continues from."""
     B, T, _ = x.shape
     h, hd, n = spec.heads, spec.head_dim, spec.n_state
     z, xBC_raw, dt = _split_proj(spec, linear(x, p.in_proj))
@@ -180,6 +191,17 @@ def mamba2_forward_with_state(
 class Mamba2DecodeState(NamedTuple):
     conv: torch.Tensor   # [B, K-1, conv_dim] model dtype
     ssm: torch.Tensor    # [B, heads, n, head_dim] f32
+
+
+def init_decode_state(spec: Mamba2Spec, batch: int, dtype: torch.dtype,
+                      device: torch.device) -> Mamba2DecodeState:
+    """Zero state for ``batch`` lanes: the conv tail in ``dtype``, the
+    SSM state in f32."""
+    return Mamba2DecodeState(
+        conv=torch.zeros((batch, CONV_K - 1, spec.conv_dim), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, spec.heads, spec.n_state, spec.head_dim),
+                        dtype=F32, device=device))
 
 
 def mamba2_decode_step(

@@ -172,6 +172,17 @@ class RWKV6DecodeState(NamedTuple):
     cm_prev: torch.Tensor   # [B, 1, d] the channel mix's last input
 
 
+def init_decode_state(spec: RWKV6Spec, batch: int, dtype: torch.dtype,
+                      device: torch.device) -> RWKV6DecodeState:
+    """Zero state for ``batch`` lanes: the wkv state in f32, the two
+    shifts in ``dtype``."""
+    prev = torch.zeros((batch, 1, spec.d_model), dtype=dtype, device=device)
+    return RWKV6DecodeState(
+        wkv=torch.zeros((batch, spec.heads, spec.head_dim, spec.head_dim),
+                        dtype=F32, device=device),
+        tm_prev=prev, cm_prev=prev.clone())
+
+
 def rwkv6_time_mix_step(tm: TimeMix, spec: RWKV6Spec, x: torch.Tensor,
                         state: RWKV6DecodeState):
     """One token ``x [B, d]``; returns ``(y [B, d], new wkv, new

@@ -58,15 +58,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..distributed.hints import current_hints, use_hints
-from ..distributed.sharding import embed_lookup, heads_local, linear
+from ..distributed.sharding import heads_local, linear
 from ..kernels.flash_attention.ops import flash_attention_op
 from . import mamba2 as m2
 from . import moe as mo
 from . import rwkv6 as rw
 from .attention import FULL_WINDOW, mea_attention
 from .layers import (LayerNorm, apply_norm, apply_rope, bias_init,
-                     dense_init, init_embedding, init_norm, mlp_apply,
-                     out_project, qkv_project)
+                     dense_init, embed, init_embedding, init_norm, mlp_apply,
+                     out_project, qkv_project, unembed)
 
 #: rows of whisper's learned decoder positions, as in the JAX tree (sized
 #: for a 32k decode; the deployed decoder context is 448)
@@ -181,6 +181,14 @@ def mlp_residual(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor
     return x + mlp_apply(lp.w_in, lp.w_out, h, cfg.act, lp.b_in, lp.b_out)
 
 
+def moe_layer_aux(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """One MoE layer's load-balance aux loss over ``x [B, S, d]`` (the
+    router recomputed on the normed input)."""
+    h = apply_norm(cfg.norm, lp.ln_mlp, x)
+    return mo.moe_aux_loss(lp.moe, mo.spec_of(cfg), h)
+
+
 class _LM(nn.Module):
     """Embedding, final norm and vocab projection, shared by the families."""
 
@@ -202,9 +210,8 @@ class _LM(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection."""
         x = apply_norm(self.cfg.norm, self.final_norm, x)
-        if self.cfg.tie_embeddings:
-            return linear(x, self.embed.T)
-        return linear(x, self.unembed)
+        tied = self.cfg.tie_embeddings
+        return unembed(self.embed if tied else self.unembed, x, tied)
 
 
 def _check_family(cfg: ArchConfig, families: tuple,
@@ -254,7 +261,7 @@ class DenseLM(_LM):
             raise ValueError("prefix_kv/pos_offset prefill-skip supports only "
                              "plain attention families without vlm/encoder "
                              f"prefixes (family={self.cfg.family!r})")
-        x = embed_lookup(self.embed, tokens)
+        x = embed(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         ks, vs = [], []
@@ -343,7 +350,7 @@ class HybridLM(_LM):
 
     def _run(self, tokens: torch.Tensor, differentiable: bool = False,
              remat: bool = False):
-        x = embed_lookup(self.embed, tokens)
+        x = embed(self.embed, tokens)
         ks, vs, ssms, convs = [], [], [], []
         hints = current_hints()
         for layer, flag in zip(self.layers, hybrid_attn_flags(self.cfg)):
@@ -457,7 +464,7 @@ class RWKV6LM(_LM):
         return self._run(tokens)[1]
 
     def _run(self, tokens: torch.Tensor, remat: bool = False):
-        x = embed_lookup(self.embed, tokens)
+        x = embed(self.embed, tokens)
         wkvs, tms, cms = [], [], []
         hints = current_hints()
         for layer in self.layers:
@@ -587,7 +594,7 @@ class WhisperLM(_LM):
 
     def _decode(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 differentiable: bool = False, remat: bool = False):
-        x = embed_lookup(self.embed, tokens)
+        x = embed(self.embed, tokens)
         x = x + self.dec_pos[:x.shape[1]].to(x.dtype)
         ks, vs = [], []
         hints = current_hints()

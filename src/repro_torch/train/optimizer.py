@@ -35,13 +35,22 @@ class AdamW(NamedTuple):
 
     def init(self, params) -> AdamWState:
         """Zero moments for every parameter of ``params`` (the LM)."""
+        return self._zeros(params, None)
+
+    def abstract_init(self, params) -> AdamWState:
+        """The state's shapes and dtypes on the ``meta`` device (the dry
+        run; no allocation)."""
+        return self._zeros(params, torch.device("meta"))
+
+    @staticmethod
+    def _zeros(params, device) -> AdamWState:
         named = dict(params.named_parameters())
-        dev = next(iter(named.values())).device
+        dev = device or next(iter(named.values())).device
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
-            m={n: torch.zeros(p.shape, dtype=F32, device=p.device)
+            m={n: torch.zeros(p.shape, dtype=F32, device=device or p.device)
                for n, p in named.items()},
-            v={n: torch.zeros(p.shape, dtype=F32, device=p.device)
+            v={n: torch.zeros(p.shape, dtype=F32, device=device or p.device)
                for n, p in named.items()})
 
     @torch.no_grad()

@@ -12,8 +12,13 @@
   instead of falling back to the CPU; the launchers print ``--help``.
 * The kernel wrapper on CPU tensors runs the plain version and leaves its
   launch counter at 0.
+* Every public name of the JAX package (top-level names, class members,
+  package exports, launcher flags) has its twin in the port, except the
+  names left out on purpose, which are ROADMAP.md's list.
 """
 import ast
+import functools
+import re
 from pathlib import Path
 
 import pytest
@@ -25,7 +30,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 PORT_TOOLS = [ROOT / "tools" / name for name in (
     "decode_step_time.py", "flash_identity.py", "kernel_time.py",
-    "prefill_hit_time.py", "profile_torch_serve.py")]
+    "prefill_hit_time.py", "profile_torch_serve.py",
+    "profile_torch_train.py")] + [
+    ROOT / "examples" / f"torch_{name}.py" for name in (
+        "allocator_sim", "quickstart", "serve_paged", "train_lm")]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -234,3 +242,273 @@ def test_sim_kernel_wrapper_on_cpu_uses_plain_version():
         assert torch.equal(torch.stack(list(got)), torch.stack(list(want)))
     assert KERNEL.launches == 0
     assert KERNEL.lib is None        # nothing was built for the CPU path
+
+
+JAX_SRC = ROOT / "src" / "repro"
+PORT_SRC = ROOT / "src" / "repro_torch"
+
+#: The Pallas kernels' modules: each one's twin is the CUDA source that
+#: the kernel's ``ops.py`` builds and launches.
+PALLAS_TWINS = {
+    "kernels/support_core/support_core_kernel.py":
+        "kernels/support_core/csrc/support_core.cu",
+    "kernels/paged_attention/paged_attention.py":
+        "kernels/paged_attention/csrc/paged_attention.cu",
+    "kernels/flash_attention/flash_attention.py":
+        "kernels/flash_attention/csrc/flash_attention.cu",
+}
+
+_COMPILES = "eager PyTorch compiles nothing, so there is nothing to count"
+_BACKEND = ("the device picks between the kernel and the plain path; there "
+            "is no backend knob")
+_INIT = ("the port's nn.Modules build their own parameters, and "
+         "params_from_numpy carries the JAX package's across")
+_HLO = ("they read XLA's lowering and compiled HLO text and correct its "
+        "count of a loop body; the port's eager dry run counts every layer "
+        "and reads its collectives from the ops it runs")
+_UNUSED_SIM = ("nothing calls it (simulate prices its own energy, cache "
+               "occupancy and miss fraction)")
+
+#: ``module``, ``module:Name``, ``module:Class.member`` or ``module:--flag``
+#: -> why the port leaves it out.  Exactly ROADMAP.md's "Not ported, on
+#: purpose" list.
+NOT_PORTED = {
+    "perf_flags.py": "the port reads no environment; each knob is an "
+                     "argument with the JAX default",
+    "serve/engine.py:EngineStats.decode_compiles": _COMPILES,
+    "serve/engine.py:EngineStats.prefill_compiles": _COMPILES,
+    "serve/engine.py:EngineStats.decode_compile_us": _COMPILES,
+    "serve/multi_engine.py:MultiEngineStats.decode_compiles": _COMPILES,
+    "serve/multi_engine.py:MultiEngineStats.decode_compile_us": _COMPILES,
+    "serve/serve_step.py:CountingJit": _COMPILES,
+    "core/paged_kv.py:PagedTenants.class_id_array":
+        "the decode step shared across shards; eager PyTorch has no "
+        "executable to share, so each shard builds its own step",
+    "core/paged_kv.py:PagedTenants.with_class_ids":
+        "the decode step shared across shards; eager PyTorch has no "
+        "executable to share, so each shard builds its own step",
+    "alloc/policies.py:AllocatorPolicy.backends": _BACKEND,
+    "alloc/policies.py:FreeListPolicy.backends": _BACKEND,
+    "alloc/policies.py:BitmapPolicy.backends": _BACKEND,
+    "alloc/policies.py:BuddyPolicy.backends": _BACKEND,
+    "alloc/service.py:AllocService.resolve_backend": _BACKEND,
+    "core/support_core.py:ALLOC_BACKENDS": _BACKEND,
+    "core/__init__.py:ALLOC_BACKENDS": _BACKEND,
+    "launch/serve.py:--alloc-backend": _BACKEND,
+    "launch/replay.py:--backend": _BACKEND,
+    "alloc/service.py:AllocService.resolve_policy":
+        "it reads perf_flags; the port's service takes its policy as an "
+        "argument",
+    "core/paged_kv.py:PagedKVConfig.state_dim":
+        "a [state_slots, 1] f32 placeholder that nothing reads but its "
+        "replicated sharding spec",
+    "core/paged_kv.py:PagedKVState.lane_state":
+        "a [state_slots, 1] f32 placeholder that nothing reads but its "
+        "replicated sharding spec",
+    "serve/serve_step.py:ServeState.step":
+        "a step counter that only the decode step itself increments; "
+        "nothing of the JAX package reads its value",
+    "distributed/sharding.py:to_shardings":
+        "XLA NamedShardings; the port places tensors with to_placements",
+    "models/layers.py:init_mlp": _INIT,
+    "models/layers.py:init_attention_proj": _INIT,
+    "models/mamba2.py:init_mamba2": _INIT,
+    "models/moe.py:init_moe": _INIT,
+    "models/rwkv6.py:init_rwkv6": _INIT,
+    "models/transformer.py:init_rwkv_block": _INIT,
+    "launch/dryrun.py:SHAPE_RE": _HLO,
+    "launch/dryrun.py:DTYPE_BYTES": _HLO,
+    "launch/dryrun.py:COLLECTIVE_LINE_RE": _HLO,
+    "launch/dryrun.py:GROUPS_BRACE_RE": _HLO,
+    "launch/dryrun.py:GROUPS_IOTA_RE": _HLO,
+    "launch/dryrun.py:parse_collective_bytes": _HLO,
+    "launch/dryrun.py:build_lowering": _HLO,
+    "launch/dryrun.py:analyze_compiled": _HLO,
+    "launch/dryrun.py:extrapolate": _HLO,
+    "launch/dryrun.py:--no-extrapolate": _HLO,
+    "launch/roofline.py:ICI_BW":
+        "the TPU's interconnect rate; the port's roofline uses the H100's "
+        "NVLink rate, LINK_BW",
+    "launch/roofline.py:CHIPS_SINGLE_POD":
+        "the TPU pod's size; the port's roofline takes each mesh's own",
+    "sim/costmodel.py:energy": _UNUSED_SIM,
+    "sim/cachemodel.py:CacheStream": _UNUSED_SIM,
+    "sim/cachemodel.py:metadata_occupancy": _UNUSED_SIM,
+    "sim/cachemodel.py:metadata_miss_fraction":
+        "nothing calls it, and it calls a function the reference never "
+        "defines",
+}
+
+
+def _public(name: str) -> bool:
+    return not name.startswith("_")
+
+
+def _assigned(node) -> list[str]:
+    targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+    out = []
+    for t in targets:
+        for n in ([t] if isinstance(t, ast.Name) else
+                  getattr(t, "elts", [])):
+            if isinstance(n, ast.Name):
+                out.append(n.id)
+    return out
+
+
+class _Module:
+    """A module's surface, read from its source: what it defines, what it
+    imports (and from where), its ``__all__`` and its classes."""
+
+    def __init__(self, root: Path, rel: str):
+        self.root, self.rel = root, rel
+        self.defined, self.imported, self.classes = set(), {}, {}
+        self.exported: list[str] = []
+        self.flags: set[str] = set()
+        tree = ast.parse((root / rel).read_text())
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self.defined.add(node.name)
+            elif isinstance(node, ast.ClassDef):
+                self.defined.add(node.name)
+                self.classes[node.name] = node
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                names = _assigned(node)
+                self.defined.update(names)
+                if "__all__" in names:
+                    self.exported = list(ast.literal_eval(node.value))
+            elif isinstance(node, ast.ImportFrom):
+                for a in node.names:
+                    self.imported[a.asname or a.name] = (node.module,
+                                                         node.level, a.name)
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    self.imported[(a.asname or a.name).split(".")[0]] = None
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and \
+                    getattr(node.func, "attr", "") == "add_argument":
+                self.flags.update(a.value for a in node.args
+                                  if isinstance(a, ast.Constant)
+                                  and str(a.value).startswith("--"))
+
+    def names(self) -> set[str]:
+        return self.defined | set(self.imported) | set(self.exported)
+
+    def public_names(self) -> set[str]:
+        """Top-level names a user reaches: defined ones, and a package's
+        exports."""
+        return {n for n in self.defined | set(self.exported)
+                if _public(n) and n != "__all__"}
+
+    def resolve(self, name: str):
+        """``(module, ClassDef)`` of class ``name`` as this module sees it,
+        following relative imports; None if it is no class of the package."""
+        if name in self.classes:
+            return self, self.classes[name]
+        src = self.imported.get(name)
+        if not src or not src[1]:
+            return None
+        module, level, orig = src
+        base = Path(self.rel).parent
+        for _ in range(level - 1):
+            base = base.parent
+        path = base.joinpath(*(module or "").split(".")) if module else base
+        for rel in (path.with_suffix(".py"), path / "__init__.py"):
+            if (self.root / rel).exists():
+                return _module(self.root, str(rel)).resolve(orig)
+        return None
+
+    def members(self, name: str) -> set[str]:
+        """Public members of class ``name``: its body's functions and
+        attributes (NamedTuple and dataclass fields too), and its bases'."""
+        found = self.resolve(name)
+        if found is None:
+            return set()
+        mod, cls = found
+        out = set()
+        for b in cls.body:
+            if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out.add(b.name)
+            elif isinstance(b, (ast.Assign, ast.AnnAssign)):
+                out.update(_assigned(b))
+        for base in cls.bases:
+            if isinstance(base, ast.Name):
+                out |= mod.members(base.id)
+        return {m for m in out if _public(m)}
+
+
+@functools.lru_cache(maxsize=None)
+def _module(root: Path, rel: str) -> _Module:
+    return _Module(root, rel)
+
+
+def _jax_surface() -> dict[str, list[str]]:
+    """``module -> keys`` of every public name of the JAX package."""
+    surface = {}
+    for path in sorted(JAX_SRC.rglob("*.py")):
+        rel = str(path.relative_to(JAX_SRC))
+        mod = _module(JAX_SRC, rel)
+        keys = [f"{rel}:{n}" for n in sorted(mod.public_names())]
+        for cls in sorted(c for c in mod.classes if _public(c)):
+            keys += [f"{rel}:{cls}.{m}" for m in sorted(mod.members(cls))]
+        keys += [f"{rel}:{f}" for f in sorted(mod.flags)]
+        surface[rel] = keys
+    return surface
+
+
+def _port_lacks(key: str) -> bool:
+    rel, _, name = key.partition(":")
+    if not (PORT_SRC / rel).exists():
+        return True
+    if not name:
+        return False
+    mod = _module(PORT_SRC, rel)
+    if name.startswith("--"):
+        return name not in mod.flags
+    cls, _, member = name.partition(".")
+    if cls not in mod.names():
+        return True
+    return bool(member) and member not in mod.members(cls)
+
+
+def _roadmap_not_ported() -> dict[str, str]:
+    """ROADMAP.md's "Not ported, on purpose" bullets: ``- `key`, `key`:
+    reason``, a reason wrapping onto indented lines."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    section = text.split("**Not ported, on purpose.**", 1)[1]
+    section = section.split("\n\n", 1)[0]
+    bullets = re.split(r"\n- ", "\n" + section.split("\n", 1)[1])[1:]
+    out = {}
+    for bullet in bullets:
+        m = re.fullmatch(r"((?:`[^`]+`(?:, )?)+): (.+)",
+                         " ".join(bullet.split()), flags=re.S)
+        assert m, f"ROADMAP.md: not a `key`: reason bullet: {bullet!r}"
+        for key in re.findall(r"`([^`]+)`", m.group(1)):
+            out[key] = m.group(2)
+    return out
+
+
+def test_port_has_the_public_names():
+    """Every public top-level name, class member, package export and
+    launcher flag of each JAX module exists in its port twin (parsed from
+    source on both sides; nothing is imported), except ``NOT_PORTED``,
+    which equals ROADMAP.md's list; the Pallas kernels' modules have their
+    CUDA sources."""
+    missing, stale = [], []
+    surface = _jax_surface()
+    for rel, keys in surface.items():
+        if rel in PALLAS_TWINS:
+            assert (PORT_SRC / PALLAS_TWINS[rel]).exists(), rel
+            continue
+        if rel in NOT_PORTED:
+            assert not (PORT_SRC / rel).exists(), rel
+            continue
+        # a class left out takes its members with it
+        missing += [k for k in keys if k not in NOT_PORTED
+                    and k.rsplit(".", 1)[0] not in NOT_PORTED
+                    and _port_lacks(k)]
+    every_key = {k for keys in surface.values() for k in keys} | set(surface)
+    stale = [k for k in NOT_PORTED if k not in every_key
+             or not _port_lacks(k)]
+    assert not missing, f"public JAX names the port lacks: {missing}"
+    assert not stale, f"NOT_PORTED entries the port has or JAX lacks: {stale}"
+    assert _roadmap_not_ported() == NOT_PORTED
