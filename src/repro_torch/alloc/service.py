@@ -37,6 +37,7 @@ from ..core.packets import (FREE_ALL, NO_BLOCK, OP_FREE, OP_MALLOC,
                             ResponseQueue)
 from ..core.support_core import StepStats
 from ..device import DeviceLike, resolve_device
+from ..tracing import span
 from .policies import AllocatorPolicy, get_policy
 
 I32 = torch.int32
@@ -360,6 +361,7 @@ class AllocService:
         burst: Union[BurstBuilder, RequestQueue],
         max_blocks_per_req: int = 1,
         gated: bool = False,
+        kind: str = "other",
     ) -> tuple[FreeListState, "BurstResult"]:
         """Run one support-core step over the staged burst.
 
@@ -367,7 +369,15 @@ class AllocService:
         burst leaves the state bit-identical and every ticket resolves
         failed/empty -- decided on the device inside the step, so the
         caller pays no host sync for the gate.
+
+        Every burst of the port passes here: one ``alloc.commit`` span,
+        whose attr ``kind`` names the caller (``admission``, ``decode``,
+        ``release``, ``window``).
         """
+        with span("alloc.commit", kind=kind):
+            return self._commit(state, burst, max_blocks_per_req, gated)
+
+    def _commit(self, state, burst, max_blocks_per_req, gated):
         queue = burst.build_queue() if isinstance(burst, BurstBuilder) \
             else burst
         if self.recorder is not None:

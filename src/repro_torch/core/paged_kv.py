@@ -308,7 +308,8 @@ def admit_prefill_many(
     if cfg.stash_size:
         t_pre = burst.refill(tenants.kv, lanes,
                              n=torch.where(fits, one * pre, forced_fail))
-    alloc, res = svc.commit(state.alloc, burst, max_blocks_per_req=resp_width)
+    alloc, res = svc.commit(state.alloc, burst, max_blocks_per_req=resp_width,
+                            kind="admission")
     stats = res.stats
     if cfg.stash_size:
         # a failed pre-charge is benign: "failed" counts required packets
@@ -525,7 +526,7 @@ def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
     alloc, res = svc.commit(state.alloc, burst,
                             max_blocks_per_req=max(
                                 1, cfg.stash_refill if refill else 1),
-                            gated=True)
+                            gated=True, kind="decode")
 
     new_blocks = res.blocks_for(t_malloc)[:, 0]
     e_got = res.ok_for(t_malloc) & missed
@@ -908,7 +909,8 @@ def release_packets(
     stage_release_ops(tenants, burst, safe, valid)
     if extra_free is not None and len(extra_free):
         stage_single_frees(tenants, burst, extra_free)
-    alloc, res = svc.commit(state.alloc, burst, max_blocks_per_req=1)
+    alloc, res = svc.commit(state.alloc, burst, max_blocks_per_req=1,
+                            kind="release")
     release_mask = set_drop(
         torch.zeros((cfg.max_lanes,), dtype=torch.bool, device=safe.device),
         (torch.where(valid, safe, cfg.max_lanes),), True)

@@ -17,7 +17,9 @@ loop instead (seeded arrivals by virtual time, ``--rate``,
 ``--priority-frac``, ``--shared-prefix-frac``, ``--max-windows``) and
 reports time-to-first-token percentiles; ``--record-trace FILE`` writes
 the run's allocator-op trace for ``python -m repro_torch.launch.replay``.
-Prints allocator and scheduler telemetry.
+Prints allocator and scheduler telemetry; ``--spans`` records the
+program's spans (:mod:`repro_torch.tracing`) and prints, at exit, each
+span's count, total and self milliseconds.
 
     python -m repro_torch.launch.serve --arch deepseek-7b --device cpu \
         --engines 2 --prefix-cache on --prefix-alias alias
@@ -27,11 +29,11 @@ Prints allocator and scheduler telemetry.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..alloc.eviction import EVICTION_POLICIES
 from ..alloc.policies import ALLOC_POLICIES
 from ..configs.base import ARCH_IDS, smoke_config
@@ -74,8 +76,9 @@ def serve_loop(eng: ServingEngine, sched: Scheduler,
                preemption: bool = False) -> int:
     """Drive the scheduler/engine lifecycle until every request completes;
     returns the number of decode steps.  ``step_times_us`` collects each
-    decode step's wall time (the step ends in a host copy of its tokens,
-    so the time covers the device work)."""
+    decode step's wall time, read from its ``decode.step`` span (the step
+    ends in a host copy of its tokens, so the time covers the device
+    work)."""
     for req in requests:
         req.max_new_tokens = max_new_tokens
         sched.submit(req)
@@ -87,10 +90,9 @@ def serve_loop(eng: ServingEngine, sched: Scheduler,
             if progressed:
                 continue
             break                      # nothing admissible: pool too small
-        t0 = time.perf_counter()
         tokens = eng.step()
         if step_times_us is not None:
-            step_times_us.append((time.perf_counter() - t0) * 1e6)
+            step_times_us.append(eng.last_step.duration_us)
         step += 1
         finished = sched.note_decode_step(tokens)
         if finished:
@@ -317,6 +319,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-windows", type=int, default=None,
                     help="open-loop window budget (smoke-run bound)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spans", action="store_true",
+                    help="record the program's spans and print each one's "
+                         "count, total and self milliseconds at exit")
     args = ap.parse_args(argv)
     if args.record_trace and args.loadgen == "off":
         ap.error("--record-trace needs --loadgen")
@@ -338,22 +343,31 @@ def main(argv=None) -> None:
                  eviction=args.eviction, cache_pages=args.cache_pages,
                  prefix_alias=args.prefix_alias,
                  alloc_policy=args.alloc_policy)
-    if args.engines > 1 or args.loadgen != "off":
-        me = MultiEngine(cfg, kvcfg, params, n_engines=args.engines,
-                         sched_cfg=scfg, quantum=args.quantum,
-                         preemption=args.preemption, router=args.router,
-                         device=args.device, **cache)
-        if args.loadgen != "off":
-            serve_loadgen(me, cfg, args)
+    if args.spans:
+        tracing.enable()
+    try:
+        if args.engines > 1 or args.loadgen != "off":
+            me = MultiEngine(cfg, kvcfg, params, n_engines=args.engines,
+                             sched_cfg=scfg, quantum=args.quantum,
+                             preemption=args.preemption, router=args.router,
+                             device=args.device, **cache)
+            if args.loadgen != "off":
+                serve_loadgen(me, cfg, args)
+            else:
+                serve_multi(me, requests, args.max_new_tokens)
         else:
-            serve_multi(me, requests, args.max_new_tokens)
-        return
-    eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg,
-                        device=args.device, **cache)
-    sched = Scheduler(scfg)
-    steps = serve_loop(eng, sched, requests, args.max_new_tokens,
-                       preemption=args.preemption)
-    report(eng, sched, steps)
+            eng = ServingEngine(cfg, kvcfg, params, sched_cfg=scfg,
+                                device=args.device, **cache)
+            sched = Scheduler(scfg)
+            steps = serve_loop(eng, sched, requests, args.max_new_tokens,
+                               preemption=args.preemption)
+            report(eng, sched, steps)
+    finally:
+        if args.spans:
+            tracing.disable()
+    if args.spans:
+        print("spans:")
+        print(tracing.format_summary(tracing.drain()))
 
 
 if __name__ == "__main__":

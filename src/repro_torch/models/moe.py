@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.hmq import round_robin_rank
+from ..tracing import span
 from .layers import dense_init
 
 
@@ -169,7 +170,14 @@ def moe_apply(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     experts (``expert_buffer``; with ``moe_local_dispatch`` it is pinned
     dp-local on both sides of the experts first).  On a mesh the routing,
     scatter and combine run on each rank over its own groups
-    (:func:`repro_torch.distributed.sharding.group_local`)."""
+    (:func:`repro_torch.distributed.sharding.group_local`).  The layer is
+    one ``moe`` span, its routing (router, top-k, dispatch) a
+    ``moe.route`` span inside it."""
+    with span("moe"):
+        return _moe_apply(params, spec, x)
+
+
+def _moe_apply(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     from ..distributed.hints import current_hints
     from ..distributed.sharding import flat_ready, grad_flat, group_local
     hints = current_hints()
@@ -182,9 +190,10 @@ def moe_apply(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     n = N // G
     C = expert_capacity(spec, n)
     xf = x.reshape(G, n, d)
-    gates = torch.softmax(xf.float() @ params.router, dim=-1)   # [G, n, E]
-    buf, top_w, pos, keep = group_local(_dispatch, G)(
-        xf, gates, spec.experts_per_token, C)
+    with span("moe.route"):
+        gates = torch.softmax(xf.float() @ params.router, dim=-1)  # [G,n,E]
+        buf, top_w, pos, keep = group_local(_dispatch, G)(
+            xf, gates, spec.experts_per_token, C)
     if hints.moe_local_dispatch:
         buf = hints.expert_buffer_local(buf)
     buf = hints.expert_buffer(buf)

@@ -77,6 +77,7 @@ from ..distributed.hints import ShardingHints
 from ..distributed.sharding import (distribute_batch, distribute_state,
                                     local_tree)
 from ..models.decode import RecurrentState, init_recurrent_state
+from ..tracing import span, timed
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
 from .serve_step import (ServeState, init_enc_out, make_decode_step,
@@ -191,7 +192,14 @@ def run_admission(eng: "ServingEngine", sched, preemption: bool = False,
     lower-priority running lane.  With the cache on, planning probes it so
     each request is bucketed by its uncached suffix.  ``after_op`` runs
     after every engine-side allocator op (the multi-engine loop passes its
-    shared-state pull)."""
+    shared-state pull).  The pass is one ``window.admission`` span (attrs
+    ``shard`` and the admitted requests' ``rids``)."""
+    with span("window.admission", shard=eng.shard) as sp:
+        return _run_admission(eng, sched, preemption, after_op, sp)
+
+
+def _run_admission(eng: "ServingEngine", sched, preemption: bool, after_op,
+                   sp) -> bool:
     sync = after_op if after_op is not None else (lambda: None)
     probe = eng.cache_probe if eng.cache is not None else None
     alias = eng.alias_enabled
@@ -215,6 +223,7 @@ def run_admission(eng: "ServingEngine", sched, preemption: bool = False,
         return False
     items = [AdmissionItem(lane, r.tokens, r.frames, r.patches, r.cached_len)
              for b in plan.batches for lane, r in b.items]
+    sp.note(rids=[r.rid for b in plan.batches for _, r in b.items])
     failed = eng.admit_many(items)
     sync()
     sched.commit_admission(plan)
@@ -261,6 +270,9 @@ class ServingEngine:
     ``alloc_policy`` names the allocator policy of the engine's own
     service; a shard installed with ``tenants`` runs its service's.
 
+    ``shard`` is the engine's index in a multi-engine deployment, the
+    ``shard`` attribute of its spans.
+
     ``hints`` (:class:`~repro_torch.distributed.hints.ShardingHints` over
     a mesh) runs the decode and prefill steps on that mesh: the caller
     places ``params`` with :func:`~repro_torch.distributed.sharding
@@ -282,8 +294,10 @@ class ServingEngine:
                  cache_pages: Optional[int] = None,
                  prefix_alias: str = "copy",
                  alloc_policy: str = "freelist",
-                 hints: Optional[ShardingHints] = None):
+                 hints: Optional[ShardingHints] = None,
+                 shard: int = 0):
         self.device = resolve_device(device)
+        self.shard = shard
         self.cfg = cfg
         self.kvcfg = kvcfg
         self.params = params
@@ -338,6 +352,8 @@ class ServingEngine:
         # and the multi-engine window's flushes follow
         self.window = recycle_window(cfg)
         self.stats = EngineStats()
+        #: the last decode step's ``decode.step`` span (its wall time)
+        self.last_step = None
 
     # ---------------- multi-tenant telemetry ----------------
 
@@ -581,7 +597,8 @@ class ServingEngine:
                     pe[i] = it.patches
                 batch["patches"] = torch.as_tensor(
                     pe, dtype=self.params.embed.dtype, device=dev)
-            res = self._prefill(self.params, batch)
+            with span("admit.prefill"):
+                res = self._prefill(self.params, batch)
             self.stats.prefill_passes += 1
             if self.recurrent:
                 # seeded with the last prompt token (folded twice)
@@ -643,14 +660,16 @@ class ServingEngine:
             tokens=self.state.tokens.index_put((lanes_arr.long(),),
                                                next_tokens))
         lanes_host = lanes_np.tolist()
-        ok = paged.active[lanes_arr.long()].cpu().tolist()
+        with span("admit.readback"):
+            ok = paged.active[lanes_arr.long()].cpu().tolist()
+            ok_lanes = [lane for lane, o in zip(lanes_host, ok) if o]
+            if ok_lanes and kv_chunks:
+                # how well the policy served admission's run grants
+                ext, pgs = pkv.extent_stats(paged.block_tables, ok_lanes)
+                self.stats.contiguous_extents += ext
+                self.stats.extent_pages += pgs
+            firsts = [] if self.recurrent else next_tokens.cpu().tolist()
         failed = [lane for lane, o in zip(lanes_host, ok) if not o]
-        ok_lanes = [lane for lane, o in zip(lanes_host, ok) if o]
-        if ok_lanes and kv_chunks:
-            # how well the policy served admission's run grants
-            ext, pgs = pkv.extent_stats(paged.block_tables, ok_lanes)
-            self.stats.contiguous_extents += ext
-            self.stats.extent_pages += pgs
         for lane, o in zip(lanes_host, ok):
             # pin the spliced entries of every lane that admitted (the
             # refcount bump was gated on the same success)
@@ -668,9 +687,8 @@ class ServingEngine:
         if self.recurrent:
             self.admitted_tokens = {}          # the seed is no output
         else:
-            toks = next_tokens.cpu().tolist()
             self.admitted_tokens = {lane: t for lane, t, o
-                                    in zip(lanes_host, toks, ok) if o}
+                                    in zip(lanes_host, firsts, ok) if o}
         if failed:
             # reclaim orphaned partial grants (KV pages granted while the
             # lane's state-slot or scratch packet failed) so failure never
@@ -715,9 +733,10 @@ class ServingEngine:
             padded(1)[perm], kv_lens, self.tenants, prefix_blocks=pb,
             prefix_lens=pl)
         self.stats.hmq_admit_bursts += 1
-        self.stats.alloc_failures += int(stats.failed)
-        self._note_burst(stats.per_tenant, stats.queue_live,
-                         stats.queue_capacity)
+        with span("admit.readback"):
+            self.stats.alloc_failures += int(stats.failed)
+            self._note_burst(stats.per_tenant, stats.queue_live,
+                             stats.queue_capacity)
         return paged
 
     def _install_states(self, states: RecurrentState, k: int,
@@ -749,16 +768,26 @@ class ServingEngine:
     def step(self) -> np.ndarray:
         """One decode step for all active lanes; returns next tokens.  With
         ``defer_refill`` the step's refills go to ``pending_ops`` for the
-        multi-engine burst window."""
-        if self.defer_refill:
-            self.state, _logits, stats, pending = self._decode(
-                self.params, self.state)
-            self.pending_ops.append(pending)
-        else:
-            self.state, _logits, stats = self._decode(
-                self.params, self.state)
-        self.stats.decode_steps += 1
-        self.stats.decode_commits += self.cfg.family != "ssm"
+        multi-engine burst window.  The step is one ``decode.step`` span
+        (``self.last_step``), which holds the decode step's
+        ``decode.forward`` and ``decode.alloc`` and the ``decode.readback``
+        of its host copies."""
+        with timed("decode.step", shard=self.shard) as self.last_step:
+            if self.defer_refill:
+                self.state, _logits, stats, pending = self._decode(
+                    self.params, self.state)
+                self.pending_ops.append(pending)
+            else:
+                self.state, _logits, stats = self._decode(
+                    self.params, self.state)
+            self.stats.decode_steps += 1
+            self.stats.decode_commits += self.cfg.family != "ssm"
+            with span("decode.readback"):
+                return self._read_step(stats)
+
+    def _read_step(self, stats) -> np.ndarray:
+        """The decode step's device-to-host copies: its stats, its burst's
+        tenant breakdown, the stash histogram and the next tokens."""
         scalars = torch.stack([stats.failed, stats.bursts, stats.stash_hits,
                                stats.stash_misses]).cpu().tolist()
         failed, bursts, hits, misses = scalars

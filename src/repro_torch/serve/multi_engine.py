@@ -36,7 +36,6 @@ of the support-core kernel.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..core import paged_kv as pkv
 from ..core.lane_stash import stash_push_batch
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
+from ..tracing import span
 from .engine import ServingEngine, run_admission
 from .router import Router, shard_load
 from .scheduler import (Request, Scheduler, SchedulerConfig,
@@ -125,8 +125,8 @@ class MultiEngine:
                           prefix_cache=prefix_cache, eviction=eviction,
                           cache_pages=cache_pages,
                           prefix_alias=prefix_alias,
-                          alloc_policy=alloc_policy)
-            for ts in tenant_sets]
+                          alloc_policy=alloc_policy, shard=i)
+            for i, ts in enumerate(tenant_sets)]
         self.scheds = [Scheduler(scfg) for _ in range(n_engines)]
         self.router = Router(router)
         self.stats = MultiEngineStats()
@@ -194,7 +194,14 @@ class MultiEngine:
                     step_times_us: Optional[list] = None) -> bool:
         """One burst window: admission (with preemption), a quantum of
         round-robin decode steps on every shard, then ONE merged commit.
-        Returns whether any shard admitted or decoded."""
+        Returns whether any shard admitted or decoded.  ``step_times_us``
+        collects each decode step's wall time, read from its
+        ``decode.step`` span."""
+        with span("window"):
+            return self._step_window(validate, step_times_us)
+
+    def _step_window(self, validate: bool,
+                     step_times_us: Optional[list]) -> bool:
         progressed = False
         for i, sched in enumerate(self.scheds):
             eng = self._sync(i)
@@ -216,10 +223,9 @@ class MultiEngine:
                 if not sched.running:
                     continue
                 eng = self._sync(i)
-                t0 = time.perf_counter()
                 tokens = eng.step()
                 if step_times_us is not None:
-                    step_times_us.append((time.perf_counter() - t0) * 1e6)
+                    step_times_us.append(eng.last_step.duration_us)
                 self._pull(i)
                 self.stats.decode_steps += 1
                 progressed = True
@@ -250,7 +256,8 @@ class MultiEngine:
                 released[i].extend(finished)
                 sched.complete(finished)
 
-        self._flush_window(released, evicted)
+        with span("window.commit"):
+            self._flush_window(released, evicted)
         if self.service.recorder is not None:
             # window boundary in the allocator-op trace
             self.service.recorder.mark_window()
@@ -306,7 +313,7 @@ class MultiEngine:
             return
         self.alloc, res = self.service.commit(
             self.alloc, burst, max_blocks_per_req=max(1, R if S else 1),
-            gated=True)
+            gated=True, kind="window")
         self.stats.window_bursts += 1
         for i, t, below in installs:
             eng = self._sync(i)

@@ -47,11 +47,17 @@ import numpy as np
 from ..configs.base import ArchConfig
 from ..core.packets import NO_LANE
 from ..core.paged_kv import PagedKVConfig
+from ..tracing import now_ns
 
 WAITING = "waiting"
 RUNNING = "running"
 FINISHED = "finished"
 FAILED = "failed"        # admission malloc failed; request was not served
+
+
+def _stamp():
+    """A clock stamp field: no part of a request's identity."""
+    return dataclasses.field(default=None, compare=False, repr=False)
 
 
 @dataclasses.dataclass
@@ -64,6 +70,13 @@ class Request:
     exactly where it stopped).  ``output`` accumulates every generated
     token across preemptions; ``priority`` orders admission (higher first)
     and selects preemption victims (lowest running priority evicted).
+
+    Four stamps on the span clock (:func:`repro_torch.tracing.now_ns`,
+    integer ns of ``time.perf_counter``) follow the request: ``t_submit``
+    (:meth:`Scheduler.submit`), ``t_admit`` (its first admission),
+    ``t_first`` (its first output token on the host) and ``t_done``
+    (FINISHED).  A preempted request keeps its first ``t_admit`` and
+    ``t_first``.
     """
 
     rid: int
@@ -83,6 +96,10 @@ class Request:
     # (multiple of page_size, < prompt_len; 0 = no hit / cache off).  Set by
     # plan_admission's probe; prefill starts at the first uncached token.
     cached_len: int = 0
+    t_submit: Optional[int] = _stamp()
+    t_admit: Optional[int] = _stamp()
+    t_first: Optional[int] = _stamp()
+    t_done: Optional[int] = _stamp()
 
     @property
     def prompt_len(self) -> int:
@@ -227,6 +244,7 @@ class Scheduler:
                 f"capacity of {self.scfg.max_kv_len}; it could never be "
                 f"admitted")
         req.state = WAITING
+        req.t_submit = now_ns()
         self.waiting.append(req)
 
     @property
@@ -323,6 +341,8 @@ class Scheduler:
                 req.state = RUNNING
                 req.lane = lane
                 req._admit_mark = len(req.output)
+                if req.t_admit is None:
+                    req.t_admit = now_ns()
                 self.running[lane] = req
 
     # ---------------- decode / completion lifecycle ----------------
@@ -344,6 +364,8 @@ class Scheduler:
                 continue               # admission failed; lane already gone
             req.output.append(int(tok))
             req.generated += 1
+            if req.t_first is None:
+                req.t_first = now_ns()
             if req.generated >= req.max_new_tokens:
                 done.append(lane)
         return done
@@ -362,6 +384,8 @@ class Scheduler:
             req.generated += 1
             if tokens is not None:
                 req.output.append(int(tokens[lane]))
+            if req.t_first is None:
+                req.t_first = now_ns()
             if req.generated >= req.max_new_tokens:
                 done.append(lane)
         return done
@@ -509,6 +533,7 @@ class Scheduler:
         for lane in lanes:
             req = self.running.pop(lane)
             req.state = FINISHED
+            req.t_done = now_ns()
             req.lane = -1
             self.finished.append(req)
             out.append(req)

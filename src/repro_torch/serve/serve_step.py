@@ -34,6 +34,7 @@ from ..distributed.sharding import replicated
 from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
                              init_recurrent_state)
 from ..models.transformer import forward, recycle_window
+from ..tracing import span
 
 I32 = torch.int32
 
@@ -143,15 +144,17 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
             return _serve_step(params, state)
 
     def _serve_step(params, state: ServeState):
-        hidden, new_kv, rec = decode_hidden(
-            params, cfg, state.paged, state.tokens, state.rec,
-            state.enc_out, hints=hints)
-        logits = decode_logits(params, hidden)
-        next_tokens = replicated(logits).argmax(dim=-1).to(I32)
+        with span("decode.forward"):
+            hidden, new_kv, rec = decode_hidden(
+                params, cfg, state.paged, state.tokens, state.rec,
+                state.enc_out, hints=hints)
+            logits = decode_logits(params, hidden)
+            next_tokens = replicated(logits).argmax(dim=-1).to(I32)
         if new_kv is not None:
-            paged, *rest = decode_append(kvcfg, state.paged, *new_kv,
-                                         tenants, defer_refill=defer_refill,
-                                         window=window)
+            with span("decode.alloc"):
+                paged, *rest = decode_append(
+                    kvcfg, state.paged, *new_kv, tenants,
+                    defer_refill=defer_refill, window=window)
         else:
             paged = state.paged._replace(
                 seq_lens=state.paged.seq_lens + state.paged.active.to(I32))

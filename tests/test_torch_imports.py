@@ -31,7 +31,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 PORT_TOOLS = [ROOT / "tools" / name for name in (
     "decode_step_time.py", "flash_identity.py", "kernel_time.py",
     "prefill_hit_time.py", "profile_torch_serve.py",
-    "profile_torch_train.py")] + [
+    "profile_torch_train.py", "trace_spans.py")] + [
     ROOT / "examples" / f"torch_{name}.py" for name in (
         "allocator_sim", "quickstart", "serve_paged", "train_lm")]
 
