@@ -1842,20 +1842,24 @@ def check_enc_out(eng, errs: list) -> None:
 
 
 def track_recycling(eng, rec: dict) -> None:
-    """Wrap the engine's decode step to keep, with no work on the card in
-    the timed step, each step's block tables before and after it and its
-    per-tenant frees (every step makes new tensors: the tables change out
-    of place); :func:`recycling_counts` reads them after the serve."""
-    inner = eng._decode
+    """Wrap the engine's step to keep copies of each step's block tables
+    before and after it and of its per-tenant frees (the decode graph
+    rewrites its buffers in place: two table copies and one of ``[C]`` in
+    the timed step); :func:`recycling_counts` reads them after the
+    serve."""
+    inner_step, inner_read = eng.step, eng._read_step
     rec.update(steps=[], kv=eng.tenants.kv.size_class)
 
-    def step(params, state):
-        out = inner(params, state)
-        rec["steps"].append((state.paged.block_tables,
-                             out[0].paged.block_tables,
-                             out[2].tenant.blocks_freed))
-        return out
-    eng._decode = step
+    def step():
+        rec["before"] = eng.state.paged.block_tables.clone()
+        return inner_step()
+
+    def read(stats):
+        rec["steps"].append((rec.pop("before"),
+                             eng.state.paged.block_tables.clone(),
+                             stats.tenant.blocks_freed.clone()))
+        return inner_read(stats)
+    eng.step, eng._read_step = step, read
 
 
 def recycling_counts(rec: dict) -> dict:

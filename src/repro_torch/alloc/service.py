@@ -20,8 +20,10 @@ CPU; the bitmap and buddy policies are plain PyTorch on either.
 
 ``AllocService.recorder`` (:mod:`repro_torch.loadgen.trace`) sees every
 commit, retag and refcount bump in state-mutation order.  Every commit of
-the port is eager, so a recorded trace holds every state change; recording
-copies each committed queue to the host once.
+the port is eager while a recorder is set (an engine then keeps its decode
+step off the CUDA graph, which would run no Python), so a recorded trace
+holds every state change; recording copies each committed queue to the
+host once.
 """
 from __future__ import annotations
 

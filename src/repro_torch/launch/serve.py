@@ -113,6 +113,14 @@ def serve_loop(eng: ServingEngine, sched: Scheduler,
     return step
 
 
+def decode_graph(s) -> str:
+    """An engine's decode-graph counters: captures, replays and the state
+    leaves copied in before the replays (all 0 where the step is eager)."""
+    return (f"decode_graph={s.decode_graph_captures}/"
+            f"{s.decode_graph_replays}/{s.decode_graph_copies} "
+            f"(captures/replays/copies)")
+
+
 def report(eng: ServingEngine, sched: Scheduler, steps: int) -> None:
     """Print the run's allocator + scheduler telemetry."""
     a = eng.state.paged.alloc
@@ -135,7 +143,8 @@ def report(eng: ServingEngine, sched: Scheduler, steps: int) -> None:
           f"preemptions={s.preemptions} | "
           f"stash_hit_rate={s.stash_hit_rate:.2f} "
           f"decode_bursts/1k={s.hmq_bursts_per_1k_decode_steps:.0f} "
-          f"stash_depth_hist={s.stash_depth_hist}")
+          f"stash_depth_hist={s.stash_depth_hist} | "
+          f"{decode_graph(s)}")
     if eng.cache is not None:
         print(f"prefix_cache: hit_rate={s.cache_hit_rate:.2f} "
               f"prefill_tokens_saved={s.prefill_tokens_saved} "
@@ -245,8 +254,8 @@ def serve_multi(me: MultiEngine, requests: list[Request],
         print(f"  e{i}: admitted={s.admitted} completed={s.completed} "
               f"decode_steps={s.decode_steps} "
               f"stash_hit_rate={s.stash_hit_rate:.2f} "
-              f"decode_bursts/1k={s.hmq_bursts_per_1k_decode_steps:.0f}"
-              f"{cache}")
+              f"decode_bursts/1k={s.hmq_bursts_per_1k_decode_steps:.0f} "
+              f"{decode_graph(s)}{cache}")
     shard_report(me)
     print("cross-engine tenant rollup (one shared AllocService):")
     for name, d in me.tenant_rollup().items():

@@ -78,6 +78,7 @@ from ..distributed.sharding import (distribute_batch, distribute_state,
                                     local_tree)
 from ..models.decode import RecurrentState, init_recurrent_state
 from ..tracing import span, timed
+from .decode_graph import DecodeGraph, graph_engages
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
                         release_packet_array)
 from .serve_step import (ServeState, init_enc_out, make_decode_step,
@@ -123,6 +124,10 @@ class EngineStats:
     extent_pages: int = 0          # pages covered by those runs
     compactions: int = 0           # compaction passes run
     compaction_moves: int = 0      # pages moved by those passes
+    # --- decode graph (the step captured once, replayed on the card) ---
+    decode_graph_captures: int = 0  # decode steps captured as a graph
+    decode_graph_replays: int = 0   # decode steps run as a graph replay
+    decode_graph_copies: int = 0    # state leaves copied in before replays
 
     @property
     def mean_run_len(self) -> float:
@@ -345,9 +350,13 @@ class ServingEngine:
                                         defer_refill=defer_refill,
                                         hints=hints)
         self._prefill = make_family_prefill(cfg, hints=hints)
-        if hints is not None and hints.mesh is not None:
+        self._mesh = hints.mesh if hints is not None else None
+        if self._mesh is not None:
             self._decode, self._prefill = _on_mesh(
-                cfg, hints.mesh, self._decode, self._prefill)
+                cfg, self._mesh, self._decode, self._prefill)
+        #: the decode step as a CUDA graph, captured at the first step
+        #: that engages it (:meth:`_graph_engages`)
+        self._graph: Optional[DecodeGraph] = None
         # the page-recycling window (swa), which the decode step's burst
         # and the multi-engine window's flushes follow
         self.window = recycle_window(cfg)
@@ -771,19 +780,45 @@ class ServingEngine:
         multi-engine burst window.  The step is one ``decode.step`` span
         (``self.last_step``), which holds the decode step's
         ``decode.forward`` and ``decode.alloc`` and the ``decode.readback``
-        of its host copies."""
+        of its host copies.
+
+        On the card the step is captured as a CUDA graph at the first
+        step and replayed by every later one (:mod:`.decode_graph`; a
+        ``decode.replay`` span, in place of ``decode.forward`` and
+        ``decode.alloc``), unless :meth:`_graph_engages` says no."""
         with timed("decode.step", shard=self.shard) as self.last_step:
+            if self._graph_engages():
+                out = self._replay()
+            else:
+                out = self._decode(self.params, self.state)
             if self.defer_refill:
-                self.state, _logits, stats, pending = self._decode(
-                    self.params, self.state)
+                self.state, _logits, stats, pending = out
                 self.pending_ops.append(pending)
             else:
-                self.state, _logits, stats = self._decode(
-                    self.params, self.state)
+                self.state, _logits, stats = out
             self.stats.decode_steps += 1
             self.stats.decode_commits += self.cfg.family != "ssm"
             with span("decode.readback"):
                 return self._read_step(stats)
+
+    def _graph_engages(self) -> bool:
+        return graph_engages(self.device, self._mesh, self.service.recorder)
+
+    def _replay(self) -> tuple:
+        """The decode step as a graph replay, captured first if it is not
+        yet: whatever ``self._decode`` is at that moment.  The deferred
+        refills are cloned, since the next replay overwrites them."""
+        if self._graph is None:
+            self._graph = DecodeGraph(self._decode, self.params, self.state)
+            self.stats.decode_graph_captures += 1
+        with span("decode.replay"):
+            out, copied = self._graph(self.state)
+        self.stats.decode_graph_replays += 1
+        self.stats.decode_graph_copies += copied
+        if self.defer_refill:
+            out = (*out[:-1], pkv.PendingDecodeOps(
+                *(t.clone() for t in out[-1])))
+        return out
 
     def _read_step(self, stats) -> np.ndarray:
         """The decode step's device-to-host copies: its stats, its burst's

@@ -15,9 +15,11 @@ which its prefill computes and its decode reads.
 Each shard of a multi-engine deployment builds its own decode step from
 its own tenant set.  The JAX package shares one step across shards (class
 ids as a traced operand) so that they share one compiled executable;
-PyTorch runs eagerly and compiles nothing, so there is nothing to share:
-the JAX package's ``CountingJit`` and its ``decode_compiles`` /
-``decode_compile_us`` counters have no counterpart here.
+PyTorch compiles nothing, so there is nothing to share: the JAX package's
+``CountingJit`` and its ``decode_compiles`` / ``decode_compile_us``
+counters have no counterpart here.  On the card each engine captures its
+own step as a CUDA graph (:mod:`repro_torch.serve.decode_graph`), so the
+step's shapes never depend on data and it never waits for the host.
 """
 from __future__ import annotations
 

@@ -37,6 +37,13 @@ gated burst) and ``decode.readback`` (the step's host copies).  Every
 burst goes through ``AllocService.commit``, one ``alloc.commit`` span
 (attr ``kind``: ``admission``, ``decode``, ``release``, ``window`` or
 ``other``; :func:`summary` gives each kind a row of its own).
+
+On the card the decode step is a CUDA graph replay
+(:mod:`repro_torch.serve.decode_graph`): ``decode.step`` then holds
+``decode.replay`` (the copy-in and the replay's one launch) and
+``decode.readback``, and ``decode.forward``, ``decode.alloc``,
+``alloc.commit[decode]``, ``moe`` and ``moe.route`` are opened once, at
+the capture in the first step, and never again.
 """
 from __future__ import annotations
 

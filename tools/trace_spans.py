@@ -24,6 +24,17 @@ own labels where none is open), how each kernel found its span (launch
 correlation id or device start), and each span's count, total and self
 ms.
 
+Where the decode step is a CUDA graph replay (the card's path,
+``repro_torch.serve.decode_graph``), a step is one ``decode.replay``
+span beside its ``decode.readback``: every kernel of the step launches
+inside it.  The step's ``moe``, ``moe.route``, ``decode.forward``,
+``decode.alloc`` and ``alloc.commit[decode]`` spans are not opened, so
+``moe_share`` reads null and ``alloc_share`` holds only the admission,
+release and window commits; ``replays`` counts the replayed steps, and
+``replay_device`` gives a replay's device span (first kernel's start to
+last one's end), the kernels' busy time in it and their number: the span
+less the busy time is the idle between the graph's kernels.
+
 ``--mode cost`` builds the cell's program once and serves, for each
 seed, the first ``lanes`` requests of the cell's traffic (outputs capped
 at 128 tokens) to completion three times: a warm-up, then twice with the
@@ -53,6 +64,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -69,6 +81,8 @@ from portbench import traffic as tr  # noqa: E402
 from repro_torch import tracing  # noqa: E402
 
 OUTPUT_CAP = 128
+#: the span of a decode step replayed as a CUDA graph
+REPLAY = "decode.replay"
 
 
 def card() -> str:
@@ -105,6 +119,26 @@ def clock_of(spans: list, ops: list, launches: dict) -> tuple[list, dict]:
                                   sum(t >= mid for t in marks), lost]}
 
 
+def replay_device(spans: list, ops: list, owner: list) -> Optional[dict]:
+    """Per replayed decode step (the kernels launched inside one
+    ``decode.replay`` span), the mean device span from its first kernel's
+    start to its last one's end, the kernels' busy time inside it and
+    their number; ``None`` where no step was replayed."""
+    groups: dict = {}
+    for (_, s, e, _), i in zip(ops, owner):
+        if i >= 0 and spans[i].name == REPLAY:
+            groups.setdefault(i, []).append((s, e))
+    if not groups:
+        return None
+    n = len(groups)
+    return {"replays": n,
+            "span_ms": sum(max(e for _, e in iv) - min(s for s, _ in iv)
+                           for iv in groups.values()) / n / 1e6,
+            "busy_ms": sum(trc.union_seconds(iv)[0]
+                           for iv in groups.values()) / n * 1e3,
+            "kernels": sum(len(iv) for iv in groups.values()) / n}
+
+
 def read_spans(run_, prof, spans: list) -> dict:
     """The span readings of a traced run (its profiler still open)."""
     t = run_.trace
@@ -126,8 +160,13 @@ def read_spans(run_, prof, spans: list) -> dict:
     owner, how = sp.attribute(ops, launches, segs)
     return {
         "decode_idle_ms": sp.decode_idle_ms(mapped, idle, lo, hi),
-        "moe_share": sp.moe_share(mapped, ops, owner),
+        # a replayed step opens no moe span (a prefill still does):
+        # nothing to split out
+        "moe_share": sp.moe_share(mapped, ops, owner)
+        if any(s.name == "moe" and sp.under(spans, i, sp.DECODE_STEP)
+               for i, s in enumerate(spans)) else None,
         "alloc_share": sp.alloc_share(spans, lo_h, hi_h),
+        "replay_device": replay_device(mapped, ops, owner),
         "child_idle_share": sp.child_idle_share(mapped, idle, segs),
         "idle_gaps": sorted(([k, v] for k, v in gaps.items()),
                             key=lambda kv: -kv[1]),
@@ -138,6 +177,8 @@ def read_spans(run_, prof, spans: list) -> dict:
         "launch_events": len(launches),
         "steps": sum(lo_h <= s.start_ns < hi_h for s in spans
                      if s.name == sp.DECODE_STEP),
+        "replays": sum(lo_h <= s.start_ns < hi_h for s in spans
+                       if s.name == REPLAY),
         "spans": len(spans),
         "table": [[n, c, round(tt, 3), round(x, 3)]
                   for n, c, tt, x in tracing.summary(spans)],
@@ -311,7 +352,10 @@ def span_cost(n: int = 200_000) -> dict:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    paras = __doc__.split("\n\n")
+    ap = argparse.ArgumentParser(
+        description=paras[0],
+        epilog=next(p for p in paras if p.startswith("Where the decode")))
     ap.add_argument("--workload")
     ap.add_argument("--seeds", type=int, nargs="+", default=[7])
     ap.add_argument("--seconds", type=float, default=51)
