@@ -349,6 +349,11 @@ WORKLOADS = {
     "phi3.5-moe-42b-a6.6b": dict(seq=2048, page=16, max_prompt=1536,
                                  requests=8, new_tokens=32,
                                  prompt_lens=(600, 1500)),
+    # prompts past its window of 1024 plus two pages: the window tenant
+    # maps only the window's pages at admission and recycles from there
+    "mellum2-12b-a2.5b": dict(seq=2304, page=16, max_prompt=2048,
+                              requests=8, new_tokens=64,
+                              prompt_lens=(1100, 2048)),
 }
 # full width with a depth cut where all layers would not fit one card:
 # qwen2-72b's 80 layers are 145 GB of bf16 weights; 8 layers are 19 GB;
@@ -412,7 +417,8 @@ SMALL_PROMPTS = {"deepseek-7b": None, "gemma3-1b": (65, 128),
                  "zamba2-1.2b": None, "phi3-medium-14b": None,
                  "qwen2-72b": None, "phi-3-vision-4.2b": None,
                  "rwkv6-7b": None, "whisper-medium": None,
-                 "mixtral-8x7b": (65, 128), "phi3.5-moe-42b-a6.6b": None}
+                 "mixtral-8x7b": (65, 128), "phi3.5-moe-42b-a6.6b": None,
+                 "mellum2-12b-a2.5b": (65, 128)}
 # each reduced config keeps what smoke_config would hide: phi3-medium's
 # G = 4, qwen2's G = 8 (with its QKV bias), phi-3-vision's hd 96,
 # rwkv6's wkv heads of 64 and whisper's hd 64 over 150 frames (not a
@@ -422,7 +428,10 @@ SMALL_DEPTH = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
                "qwen2-72b": dict(num_heads=8, num_kv_heads=1),
                "phi-3-vision-4.2b": dict(head_dim=96),
                "rwkv6-7b": dict(head_dim=64),
-               "whisper-medium": dict(head_dim=64, encoder_seq_len=150)}
+               "whisper-medium": dict(head_dim=64, encoder_seq_len=150),
+               # one period (three windowed layers of 64, one global), 8
+               # experts top-2: a split cache, grouped expert products
+               "mellum2-12b-a2.5b": dict(num_layers=4, num_experts=8)}
 # the archs whose phase 5 adds two shards with prefix caches and the
 # bitmap and buddy policies
 MULTI_ARCHS = ("deepseek-7b", "gemma3-1b", "qwen2-72b")
@@ -2023,7 +2032,9 @@ def serve_full_width(dev, arch: str, cfg, params,
     wl = WORKLOADS[arch]
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
+    from repro_torch.tracing import COUNTERS
     zero_launches()
+    counts0 = COUNTERS.read()
     t0 = time.perf_counter()
     prefill_us: list = []
     patch_rows: list = []
@@ -2057,6 +2068,8 @@ def serve_full_width(dev, arch: str, cfg, params,
               f"pushed to the lane stash, {flushed} flushed as single "
               f"frees); at most {most} pages in a lane's table after any "
               f"step (limit {limit})")
+    if eng.state.paged.win is not None:
+        swa = split_window_counts(arch, eng, counts0)
     if cfg.family == "vlm":
         if len(patch_rows) != eng.stats.admitted:
             fail(f"{arch}: {len(patch_rows)} admissions checked for their "
@@ -2110,6 +2123,9 @@ def serve_full_width(dev, arch: str, cfg, params,
           f"ms; {card})")
     paged, rec = eng.state.paged, eng.state.rec
     pool_gb = 2 * paged.k_pages.numel() * paged.k_pages.element_size() / 1e9
+    if paged.win is not None:
+        pool_gb += 2 * paged.win.k_pages.numel() \
+            * paged.win.k_pages.element_size() / 1e9
     rec_gb = 0.0 if rec is None else sum(
         t.numel() * t.element_size() for t in rec if t is not None) / 1e9
     enc = eng.state.enc_out
@@ -2141,6 +2157,39 @@ def serve_full_width(dev, arch: str, cfg, params,
                 prefill_passes=s.prefill_passes, commits=s.commits, **swa,
                 **({"outputs": [list(r.output) for r in reqs]}
                    if keep_outputs else {}))
+
+
+def split_window_counts(arch: str, eng, counts0: dict) -> dict:
+    """A split cache's serve, read from the program's counters: the
+    window tenant mapped at most its span a lane at admission and
+    recycled, its K/V bytes a token against one pool's, and the expert
+    rows routed over those computed."""
+    from repro_torch.core.paged_kv import page_bytes
+    from repro_torch.tracing import COUNTERS
+    c = COUNTERS.read()
+
+    def d(name):
+        return c.get(name, 0) - counts0.get(name, 0)
+    kv = eng.kvcfg
+    admitted = d("kv_window_pages.admitted_pages")
+    recycled = d("kv_window_pages.recycled")
+    if admitted > eng.stats.admitted * kv.window_span or recycled <= 0:
+        fail(f"{arch}: the window tenant mapped {admitted} pages for "
+             f"{eng.stats.admitted} admissions (at most {kv.window_span} "
+             f"each) and recycled {recycled}")
+    per_token = (d("kv_pages.held_bytes") + d("kv_window_pages.held_bytes")) \
+        / d("kv.held_tokens")
+    one_pool = page_bytes(kv, kv.kv_layers) / kv.page_size
+    rows = d("moe.rows_routed") / d("moe.rows_computed")
+    print(f"  split cache: {kv.num_kv_layers} global layers in "
+          f"{kv.num_pages} pages, {len(kv.window_layers)} windowed layers "
+          f"in {kv.window_pages}; window pages mapped at admission "
+          f"{admitted} (at most {kv.window_span} a lane), recycled "
+          f"{recycled}; K/V held {per_token:.0f} bytes a token against "
+          f"{one_pool:.0f} in one pool; expert rows routed / computed "
+          f"{rows:.3f}")
+    return dict(window_admitted_pages=admitted, window_recycled=recycled,
+                kv_bytes_per_token=per_token, expert_row_use=rows)
 
 
 def teacher_forced(dev, arch: str, spec: dict) -> list:
@@ -2832,14 +2881,10 @@ def device_vs_cpu(dev, arch: str) -> None:
     the engine again with the stash off, then two shards with the stash
     off, so that every recycle is a single free on a decode or a window
     commit)."""
-    from repro_torch.configs import smoke_config
     from repro_torch.models import init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(smoke_config(arch),
-                              **SMALL_DEPTH.get(arch, {}))
-    if cfg.attn_pattern == "local_global":
-        cfg = dataclasses.replace(cfg, local_per_global=1)
+    cfg = reduced_config(arch)
     params_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     params_gpu = copy.deepcopy(params_cpu).to(dev)
     engine_device_vs_cpu(dev, arch, cfg, params_cpu, params_gpu)
@@ -2896,6 +2941,14 @@ def engine_device_vs_cpu(dev, arch: str, cfg, params_cpu, params_gpu,
                            getattr(ec.state.paged, field)):
             fail(f"{arch}: paged state field {field} differs between cuda "
                  f"and cpu")
+    if eg.state.paged.win is not None:
+        wg, wc = eg.state.paged.win, ec.state.paged.win
+        for name, a, b in (("block_tables", wg.block_tables, wc.block_tables),
+                           ("stash pages", wg.stash.pages, wc.stash.pages),
+                           ("stash depth", wg.stash.depth, wc.stash.depth)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{arch}: the window tenant's {name} differ between "
+                     f"cuda and cpu")
     recycled = ""
     if cg is not None:
         cg, cc = recycling_counts(cg), recycling_counts(cc)
@@ -3129,11 +3182,20 @@ TRAIN_DIR = ROOT / "build" / "train_checkpoints"
 
 
 def train_config(arch: str):
-    """Phase 5's reduced config of ``arch`` (gemma3-1b with one local and
-    one global layer)."""
+    """Phase 5's reduced config of ``arch`` (:func:`reduced_config`)."""
+    return reduced_config(arch)
+
+
+def reduced_config(arch: str):
+    """``arch``'s smoke config cut as ``SMALL_DEPTH`` says; a
+    ``local_global`` one that the cut left with no global layer (gemma3-1b's
+    two of period 6) takes one local layer to one global."""
     from repro_torch.configs import smoke_config
+    from repro_torch.models.attention import FULL_WINDOW
+    from repro_torch.models.transformer import layer_windows
     cfg = dataclasses.replace(smoke_config(arch), **SMALL_DEPTH.get(arch, {}))
-    if cfg.attn_pattern == "local_global":
+    if cfg.attn_pattern == "local_global" \
+            and FULL_WINDOW not in layer_windows(cfg):
         cfg = dataclasses.replace(cfg, local_per_global=1)
     return cfg
 
@@ -4241,7 +4303,11 @@ def run_phases(dev, card: str, mesh_procs: list) -> None:
              "sliding window 4096 with page recycling, 32 heads on 8 KV "
              "heads x 128"),
             ("4m", "phi3.5-moe-42b-a6.6b", "16 of 32 layers, 16 experts "
-             "top-2, full attention")):
+             "top-2, full attention"),
+            ("4n", "mellum2-12b-a2.5b", "28 layers, 21 sliding-window "
+             "(1024) and 7 full with YaRN RoPE, 64 experts top-8 in "
+             "grouped products, 32 heads on 4 KV heads x 128, a split "
+             "cache")):
         banner(f"{phase}. serve {arch} at full width ({what})")
         t0 = time.perf_counter()
         cfg, params = full_width_params(dev, arch)
@@ -4263,7 +4329,7 @@ def run_phases(dev, card: str, mesh_procs: list) -> None:
     for arch in ("deepseek-7b", "gemma3-1b", "zamba2-1.2b",
                  "phi3-medium-14b", "qwen2-72b", "phi-3-vision-4.2b",
                  "rwkv6-7b", "whisper-medium", "mixtral-8x7b",
-                 "phi3.5-moe-42b-a6.6b"):
+                 "phi3.5-moe-42b-a6.6b", "mellum2-12b-a2.5b"):
         device_vs_cpu(dev, arch)
 
     banner("6a. train: card against cpu, two steps at the reduced "

@@ -13,7 +13,9 @@ the audio family -- ``whisper-medium`` (an encoder over precomputed frame
 embeddings, a decoder with cross-attention) -- and the moe family --
 ``mixtral-8x7b`` (8 experts, top-2, sliding-window attention) and
 ``phi3.5-moe-42b-a6.6b`` (16 experts, top-2, full attention): every arch
-of the JAX package.
+of the JAX package -- and ``mellum2-12b-a2.5b`` (64 experts, top-8, three
+sliding-window layers to one global YaRN layer), which the JAX package
+does not have (:data:`PORT_ONLY_ARCH_IDS`).
 """
 from __future__ import annotations
 
@@ -26,7 +28,11 @@ _REGISTRY: dict[str, "ArchConfig"] = {}
 #: arch ids the port can build today
 ARCH_IDS = ("deepseek-7b", "gemma3-1b", "phi3-medium-14b", "qwen2-72b",
             "phi-3-vision-4.2b", "zamba2-1.2b", "rwkv6-7b", "whisper-medium",
-            "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+            "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "mellum2-12b-a2.5b")
+
+#: arch ids of the port that the JAX package it was ported from does not
+#: have: no parity test can hold them to it
+PORT_ONLY_ARCH_IDS = ("mellum2-12b-a2.5b",)
 
 _MODULE_BY_ID = {
     "deepseek-7b": "deepseek_7b",
@@ -39,6 +45,7 @@ _MODULE_BY_ID = {
     "whisper-medium": "whisper_medium",
     "mixtral-8x7b": "mixtral_8x7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2p5b",
 }
 
 #: the four assigned input shapes (seq_len, global_batch, kind)
@@ -69,7 +76,18 @@ class ArchConfig:
     attn_pattern: str = "full"               # full | swa | local_global
     window: Optional[int] = None             # SWA window (tokens)
     local_per_global: int = 0
+    # --- under local_global, the windowed layers' K/V in a second paged
+    # pool that recycles past the window (a field of the port alone: the
+    # JAX package keeps every layer in one pool) ---
+    kv_split_window: bool = False
     rope_theta: float = 10_000.0
+    # --- YaRN RoPE on the global (full-attention) layers; 0 = plain RoPE
+    # everywhere (a field of the port alone: the JAX package has no YaRN) ---
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 1.0
     # --- MoE ---
     num_experts: int = 0
     experts_per_token: int = 0
@@ -202,6 +220,10 @@ def smoke_config(arch_id: str) -> ArchConfig:
         vocab_size=512,
         head_dim=32,
         num_experts=min(full.num_experts, 4) if full.num_experts else 0,
+        # a top-k wider than half the 4 experts left is cut to 2 (the JAX
+        # archs' top-2 unchanged)
+        experts_per_token=min(full.experts_per_token, 2)
+        if full.experts_per_token else 0,
         moe_capacity_factor=16.0,
         window=min(full.window, 64) if full.window else None,
         ssm_state=min(full.ssm_state, 16) if full.ssm_state else 0,

@@ -41,6 +41,22 @@ the lane's block table (a ``NO_BLOCK`` hole) and goes back to the lane's
 stash; where the stash is full or off it is flushed to the central stack
 as a single free on the step's burst or, with ``defer_refill``, on the
 window commit (``PendingDecodeOps.flush_mask``/``flush_blocks``).
+
+**Split cache** (``PagedKVConfig.split_window``, a model whose windowed
+and global layers sit side by side): the global layers keep their K/V in
+``kv_pages`` as above, growing with the lane; the windowed layers keep
+theirs in a second tenant, ``kv_window_pages`` (class 1, ahead of the
+state slots and scratch), with pools, block tables and a stash of its
+own (:class:`WindowKVState`, ``PagedKVState.win``), on the same
+``seq_lens``.  Admission maps in it only the pages the window of the
+prompt's last position can still see, at most ``ceil(window /
+page_size) + 1`` a lane, so no dead page is ever mapped; each decode
+append then recycles the one page that slid out of the window, which is
+therefore every dead page (the single-pool path keeps a long prompt's
+older dead pages, as the JAX package does).  Both tenants' packets ride
+the step's one burst, the admission's and the window commit's.  The
+decode step returns the K/V of the global layers first, then the
+windowed layers', each in layer order.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ from .lane_stash import (LaneStashState, below_watermark, init_stash,
 from .packets import NO_BLOCK
 from .scatter import add_drop, set_drop
 from .support_core import StepStats
+from ..tracing import COUNTERS
 
 I32 = torch.int32
 
@@ -73,6 +90,7 @@ STATE_CLASS = 1
 
 #: Tenant names the paged KV registers on its service, in class order.
 KV_TENANT = "kv_pages"
+WINDOW_TENANT = "kv_window_pages"
 STATE_TENANT = "state_slots"
 SCRATCH_TENANT = "scratch"
 
@@ -101,15 +119,60 @@ class PagedKVConfig:
     stash_size: int = 0
     stash_watermark: int = 2
     stash_refill: int = 4
+    # split cache (0 = one pool): the KV layers ``window_layers`` see
+    # ``split_window`` tokens and keep their K/V in the window tenant's
+    # ``window_pages`` pages; ``num_kv_layers`` counts the others
+    split_window: int = 0
+    window_layers: tuple = ()
+    window_pages: int = 0
 
     def __post_init__(self):
         if self.stash_size:
             validate_stash_params(self.stash_size, self.stash_watermark,
                                   self.stash_refill)
+        if bool(self.split_window) != bool(self.window_layers) \
+                or bool(self.split_window) != bool(self.window_pages):
+            raise ValueError("a split cache sets split_window, "
+                             "window_layers and window_pages together")
 
     @property
     def tokens_capacity(self) -> int:
         return self.num_pages * self.page_size
+
+    @property
+    def kv_layers(self) -> int:
+        """KV layers of the model, in both pools."""
+        return self.num_kv_layers + len(self.window_layers)
+
+    @property
+    def full_layers(self) -> tuple:
+        """KV layers whose K/V lives in ``kv_pages``, in order."""
+        win = set(self.window_layers)
+        return tuple(i for i in range(self.kv_layers) if i not in win)
+
+    @property
+    def window_span(self) -> int:
+        """Pages a lane's window tenant maps at most: the
+        ``split_window + 1`` positions an append can still see, rounded
+        out to pages."""
+        return min(-(-self.split_window // self.page_size) + 1,
+                   self.max_pages_per_lane)
+
+
+def page_bytes(cfg: PagedKVConfig, layers: int) -> int:
+    """K and V bytes of one page of ``layers`` layers."""
+    return 2 * layers * cfg.page_size * cfg.kv_heads * cfg.head_dim \
+        * torch.empty((), dtype=cfg.dtype).element_size()
+
+
+class WindowKVState(NamedTuple):
+    """A split cache's window tenant: its own block tables (``NO_BLOCK``
+    below the window), pools and stash, on the lanes' ``seq_lens``."""
+
+    block_tables: torch.Tensor    # [max_lanes, max_pages_per_lane] int32
+    k_pages: torch.Tensor         # [window_pages + 1, L_win, ps, kv, hd]
+    v_pages: torch.Tensor
+    stash: LaneStashState
 
 
 class PagedKVState(NamedTuple):
@@ -122,6 +185,7 @@ class PagedKVState(NamedTuple):
     stash: LaneStashState         # per-lane page stash
     scratch_slot: torch.Tensor    # [max_lanes] int32 workspace block (NO_BLOCK if none)
     state_slot: torch.Tensor      # [max_lanes] int32 recurrent-state slot (NO_BLOCK if none)
+    win: Optional[WindowKVState] = None   # a split cache's window tenant
 
 
 class DecodeStats(NamedTuple):
@@ -165,30 +229,35 @@ class PagedTenants(NamedTuple):
     kv: TenantHandle
     state: Optional[TenantHandle] = None
     scratch: Optional[TenantHandle] = None
+    window: Optional[TenantHandle] = None
 
     @property
     def handles(self) -> tuple:
         """The registered handles, in class order."""
-        return tuple(t for t in (self.kv, self.state, self.scratch)
-                     if t is not None)
+        return tuple(t for t in (self.kv, self.window, self.state,
+                                 self.scratch) if t is not None)
 
 
 def register_paged_tenants(svc: AllocService, cfg: PagedKVConfig,
                            namespace: str = "") -> PagedTenants:
     """Register this config's tenant set on ``svc`` in class order
-    (``kv_pages``, then ``state_slots`` and ``scratch`` where configured),
+    (``kv_pages``, then ``kv_window_pages``, ``state_slots`` and
+    ``scratch`` where configured),
     optionally namespaced: each shard of a multi-engine deployment calls
     this once on the one shared service before ``init_state``."""
     by_base = {t.base_name: t for t in svc.register_tenants(
         _tenant_spec(cfg), namespace=namespace)}
     return PagedTenants(service=svc, kv=by_base[KV_TENANT],
                         state=by_base.get(STATE_TENANT),
-                        scratch=by_base.get(SCRATCH_TENANT))
+                        scratch=by_base.get(SCRATCH_TENANT),
+                        window=by_base.get(WINDOW_TENANT))
 
 
 def _tenant_spec(cfg: PagedKVConfig) -> list[tuple[str, int]]:
     """``(name, capacity)`` of each tenant, in class order."""
     spec = [(KV_TENANT, cfg.num_pages)]
+    if cfg.split_window:
+        spec.append((WINDOW_TENANT, cfg.window_pages))
     if cfg.state_slots:
         spec.append((STATE_TENANT, cfg.state_slots))
     if cfg.scratch_slots:
@@ -214,7 +283,8 @@ def paged_tenants(cfg: PagedKVConfig, device: DeviceLike = None,
                   policy: str = "freelist") -> PagedTenants:
     """A fresh service on ``device`` running ``policy``, with this
     config's tenants registered in class order: ``kv_pages`` (class 0),
-    then ``state_slots`` and ``scratch`` where configured."""
+    then ``kv_window_pages``, ``state_slots`` and ``scratch`` where
+    configured."""
     return register_paged_tenants(AllocService(policy=policy, device=device),
                                   cfg)
 
@@ -228,6 +298,16 @@ def init_paged_kv(cfg: PagedKVConfig, tenants: PagedTenants,
     shape = (cfg.num_pages + 1, cfg.num_kv_layers, cfg.page_size,
              cfg.kv_heads, cfg.head_dim)
     L = cfg.max_lanes
+    win = None
+    if cfg.split_window:
+        wshape = (cfg.window_pages + 1, len(cfg.window_layers),
+                  cfg.page_size, cfg.kv_heads, cfg.head_dim)
+        win = WindowKVState(
+            block_tables=torch.full((L, cfg.max_pages_per_lane), NO_BLOCK,
+                                    dtype=I32, device=dev),
+            k_pages=torch.zeros(wshape, dtype=cfg.dtype, device=dev),
+            v_pages=torch.zeros(wshape, dtype=cfg.dtype, device=dev),
+            stash=init_stash(L, cfg.stash_size, dev))
     return PagedKVState(
         alloc=tenants.service.init_state() if alloc is None else alloc,
         block_tables=torch.full((L, cfg.max_pages_per_lane), NO_BLOCK,
@@ -239,6 +319,7 @@ def init_paged_kv(cfg: PagedKVConfig, tenants: PagedTenants,
         stash=init_stash(L, cfg.stash_size, dev),
         scratch_slot=torch.full((L,), NO_BLOCK, dtype=I32, device=dev),
         state_slot=torch.full((L,), NO_BLOCK, dtype=I32, device=dev),
+        win=win,
     )
 
 
@@ -274,7 +355,20 @@ def admit_prefill_many(
     suffix only.  Each admitted lane's row becomes ``[its cached prefix
     pages | fresh suffix pages]``, the prefix pages' refcounts rise by one
     per lane (no burst, no K/V moved) and ``seq_lens`` covers both.
+
+    A split cache (``k``/``v`` over every KV layer, in layer order) maps
+    the global layers' pages in ``kv_pages`` and, in the window tenant,
+    only the pages the window of the last prompt position can still see
+    (``malloc_run`` and pre-charge packets of its own on the same burst);
+    a lane is admitted when both tenants granted it.  No prefix cache.
     """
+    if cfg.split_window:
+        if prefix_blocks is not None and prefix_blocks.shape[1]:
+            raise NotImplementedError("a split cache has no prefix cache")
+        full = torch.as_tensor(cfg.full_layers, device=k.device)
+        win_idx = torch.as_tensor(cfg.window_layers, device=k.device)
+        k_win, v_win = k.index_select(1, win_idx), v.index_select(1, win_idx)
+        k, v = k.index_select(1, full), v.index_select(1, full)
     B, L, T = k.shape[:3]
     ps = cfg.page_size
     max_pages = (T + ps - 1) // ps
@@ -308,6 +402,17 @@ def admit_prefill_many(
     if cfg.stash_size:
         t_pre = burst.refill(tenants.kv, lanes,
                              n=torch.where(fits, one * pre, forced_fail))
+    if cfg.split_window:
+        # the window tenant: the pages from the first one the window of
+        # the last prompt position sees
+        first_w = torch.div(lengths.to(I32) - cfg.split_window, ps,
+                            rounding_mode="floor").clamp(min=0)
+        n_win = n_pages - first_w
+        t_win = burst.malloc_run(tenants.window, lanes,
+                                 n=torch.where(fits, n_win, forced_fail))
+        if cfg.stash_size:
+            t_wpre = burst.refill(tenants.window, lanes,
+                                  n=torch.where(fits, one * pre, forced_fail))
     alloc, res = svc.commit(state.alloc, burst, max_blocks_per_req=resp_width,
                             kind="admission")
     stats = res.stats
@@ -320,6 +425,10 @@ def admit_prefill_many(
         pt = stats.per_tenant
         failed = pt.failed.clone()
         failed[tenants.kv.size_class] = kv_required
+        if cfg.split_window:
+            win_required = (~res.ok_for(t_win)).sum(dtype=I32)
+            required = required + win_required
+            failed[tenants.window.size_class] = win_required
         stats = stats._replace(core=stats.core._replace(failed=required),
                                per_tenant=pt._replace(failed=failed))
 
@@ -327,6 +436,8 @@ def admit_prefill_many(
     got = res.ok_for(t_kv)
     for t in slot_tickets:
         got = got & res.ok_for(t)
+    if cfg.split_window:
+        got = got & res.ok_for(t_win)
     M = cfg.max_pages_per_lane
     if prefix_blocks is None:
         p_lim = min(max_pages, M)
@@ -383,11 +494,65 @@ def admit_prefill_many(
     seq_lens[lanes_l] = torch.where(got, prefix_lens + lengths.to(I32), 0)
     active = state.active.clone()
     active[lanes_l] = got
+    win = state.win
+    if cfg.split_window:
+        win = _admit_window(cfg, win, lanes_l, k_win, v_win, first_w, n_win,
+                            got, res.blocks_for(t_win),
+                            (res.blocks_for(t_wpre), res.ok_for(t_wpre))
+                            if cfg.stash_size else None)
+        # pages mapped at admission: counted on a split cache alone, whose
+        # readers (kv_bytes_per_token's cell, chip_smoke 4n) exist
+        COUNTERS.add_device(
+            ("kv_pages.admitted_pages", "kv_window_pages.admitted_pages"),
+            torch.stack([(rows != NO_BLOCK).sum(),
+                         (win.block_tables[lanes_l] != NO_BLOCK).sum()]))
     new = state._replace(alloc=alloc, block_tables=block_tables,
                          seq_lens=seq_lens, active=active, stash=stash,
                          scratch_slot=slot_rows(state.scratch_slot, t_scratch),
-                         state_slot=slot_rows(state.state_slot, t_state))
+                         state_slot=slot_rows(state.state_slot, t_state),
+                         win=win)
     return new, stats
+
+
+def _admit_window(cfg: PagedKVConfig, win: WindowKVState,
+                  lanes: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  first: torch.Tensor, n_win: torch.Tensor,
+                  got: torch.Tensor, granted: torch.Tensor, pre=None
+                  ) -> WindowKVState:
+    """The window tenant's side of an admission: each admitted lane's
+    table maps slots ``[first, first + n_win)`` to its granted pages, and
+    the windowed layers' K/V (``k``, ``v`` ``[B, L_win, T, kv, hd]``) of
+    those pages alone is written into them; ``pre`` = (blocks, ok) of the
+    stash pre-charge."""
+    B, Lw, T = k.shape[:3]
+    ps = cfg.page_size
+    max_pages = (T + ps - 1) // ps
+    span = min(cfg.window_span, max_pages)
+    pages = granted[:, :span]
+    M = cfg.max_pages_per_lane
+    dev = lanes.device
+    rel = torch.arange(M, dtype=I32, device=dev)[None, :] - first[:, None]
+    mapped = (rel >= 0) & (rel < n_win[:, None]) & got[:, None]
+    rows = torch.where(mapped, pages.gather(1, rel.clamp(0, span - 1).long()),
+                       NO_BLOCK)
+    block_tables = win.block_tables.clone()
+    block_tables[lanes] = rows
+    # the pages' K/V: slot first + i of each lane, i < span
+    i = torch.arange(span, dtype=I32, device=dev)[None, :]
+    slot = (first[:, None] + i).clamp(max=max_pages - 1).long()
+    valid = (i < n_win[:, None]) & got[:, None]
+    dst = torch.where(valid, pages, cfg.window_pages).reshape(-1).long()
+    rows_b = torch.arange(B, device=dev)[:, None]
+    for src, pool in ((k, win.k_pages), (v, win.v_pages)):
+        src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, max_pages * ps - T))
+        src = src.reshape(B, Lw, max_pages, ps, cfg.kv_heads, cfg.head_dim)
+        pool[dst] = src[rows_b, :, slot].reshape(
+            B * span, Lw, ps, cfg.kv_heads, cfg.head_dim).to(cfg.dtype)
+    stash = win.stash
+    if pre is not None:
+        R = cfg.stash_refill
+        stash = stash_set_rows(stash, lanes.to(I32), pre[0][:, :R], R, pre[1])
+    return win._replace(block_tables=block_tables, stash=stash)
 
 
 def admit_prefill(
@@ -419,11 +584,13 @@ class PendingDecodeOps(NamedTuple):
     recycling produces flushes (a recycled page that found its lane's stash
     full or off); a flushed page stays owned by its lane, out of its table,
     until the window's commit frees it, so a release in the same window
-    returns it once through the FREE_ALL and the free together."""
+    returns it once through the FREE_ALL and the free together.  A split
+    cache's window tenant has its own (``window``)."""
 
     below: torch.Tensor           # [L] bool: lanes wanting a stash refill
     flush_mask: torch.Tensor      # [L] bool: recycled pages that overflowed
     flush_blocks: torch.Tensor    # [L] int32: their ids (NO_BLOCK else)
+    window: Optional["PendingDecodeOps"] = None
 
 
 def decode_append(
@@ -450,6 +617,14 @@ def decode_append(
     prompt longer than ``window + 2 * page_size``) stays until the lane's
     release, as in the JAX package.
 
+    A split cache does both at once: ``kv_pages`` as without ``window``
+    for the global layers (``new_k[:, :num_kv_layers]``), and the window
+    tenant, recycling past ``cfg.split_window``, for the windowed ones
+    (the rest, in layer order), their packets on the same burst; a
+    lane's token is appended when both tenants had its page.  Since its
+    admission maps no dead page, its one recycled page a step is every
+    dead page.
+
     ``defer_refill=True`` keeps only the emergency mallocs in the step's
     burst (response width 1) and returns the refills and flushes as a
     third value, :class:`PendingDecodeOps`, for the caller's burst window.
@@ -461,31 +636,50 @@ def decode_append(
     (:func:`~repro_torch.distributed.sharding.pool_write`).
     """
     from ..distributed.sharding import local_replicated, pool_write
-    meta = state._replace(k_pages=None, v_pages=None)
-    new, dst_page, offset, *rest = local_replicated(_append_metadata)(
-        cfg, meta, tenants, defer_refill, window)
+    win = state.win
+    meta = state._replace(k_pages=None, v_pages=None, win=None if win is None
+                          else win._replace(k_pages=None, v_pages=None))
+    new, dst_page, win_page, offset, *rest = local_replicated(
+        _append_metadata)(cfg, meta, tenants, defer_refill, window)
+    if win is not None:
+        n = cfg.num_kv_layers
+        pool_write(win.k_pages, win_page, offset, new_k[:, n:])
+        pool_write(win.v_pages, win_page, offset, new_v[:, n:])
+        win = new.win._replace(k_pages=win.k_pages, v_pages=win.v_pages)
+        new_k, new_v = new_k[:, :n], new_v[:, :n]
     pool_write(state.k_pages, dst_page, offset, new_k)
     pool_write(state.v_pages, dst_page, offset, new_v)
-    return (new._replace(k_pages=state.k_pages, v_pages=state.v_pages),
-            *rest)
+    return (new._replace(k_pages=state.k_pages, v_pages=state.v_pages,
+                         win=win), *rest)
 
 
-def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
-                     tenants: PagedTenants, defer_refill: bool,
-                     window: Optional[int]):
-    """:func:`decode_append`'s allocator and table work: ``(state without
-    pools, the pages and offsets to write, DecodeStats[,
-    PendingDecodeOps])``."""
-    ps = cfg.page_size
-    L = cfg.max_lanes
-    S = cfg.stash_size
-    dev = state.seq_lens.device
-    pos = state.seq_lens
+class _TenantStep(NamedTuple):
+    """One KV tenant's side of a decode step, staged on the burst."""
+
+    handle: TenantHandle
+    block_tables: torch.Tensor
+    stash: LaneStashState
+    popped: torch.Tensor
+    got_stash: torch.Tensor
+    missed: torch.Tensor
+    below: torch.Tensor
+    overflow: torch.Tensor
+    dead_block: torch.Tensor
+    recycle: torch.Tensor
+    t_malloc: object
+    t_refill: object
+
+
+def _stage_tenant(cfg: PagedKVConfig, handle: TenantHandle, block_tables,
+                  stash: LaneStashState, active, pos, needs_page, burst,
+                  refill: bool, defer_refill: bool,
+                  window: Optional[int]) -> _TenantStep:
+    """Pop the boundary lanes' stash, recycle the page that slid out of
+    ``window``, and stage the tenant's emergency mallocs, refills and (not
+    deferred) overflow frees on ``burst``, in that order."""
+    L, S = cfg.max_lanes, cfg.stash_size
+    dev = pos.device
     lane_ids = torch.arange(L, dtype=I32, device=dev)
-    needs_page = state.active & (pos % ps == 0) \
-        & (pos // ps < cfg.max_pages_per_lane)
-
-    stash = state.stash
     if S:
         stash, popped, got_stash = stash_pop(stash, needs_page)
         missed = needs_page & ~got_stash
@@ -493,13 +687,15 @@ def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
         popped = torch.full((L,), NO_BLOCK, dtype=I32, device=dev)
         got_stash = torch.zeros((L,), dtype=torch.bool, device=dev)
         missed = needs_page
-
-    block_tables = state.block_tables
+    none = torch.zeros_like(needs_page)
+    overflow = recycle = none
+    dead_block = torch.full_like(pos, NO_BLOCK)
     if window is not None:
         # after appending at pos, tokens < pos + 1 - window are dead; page
         # p is dead when (p + 1) * ps <= pos + 1 - window
+        ps = cfg.page_size
         dead_idx = (pos + 1 - window) // ps - 1
-        has_dead = state.active & (dead_idx >= 0) \
+        has_dead = active & (dead_idx >= 0) \
             & ((dead_idx + 1) * ps <= pos + 1 - window)
         safe_idx = dead_idx.clamp(0, cfg.max_pages_per_lane - 1)
         dead_block = block_tables[lane_ids.long(), safe_idx.long()]
@@ -512,70 +708,147 @@ def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
         block_tables = set_drop(block_tables,
                                 (torch.where(recycle, lane_ids, L), safe_idx),
                                 NO_BLOCK)
-
-    svc, kv = tenants.service, tenants.kv
-    burst = svc.new_burst()
-    t_malloc = burst.malloc(kv, lane_ids, 1, where=missed)
-    refill = S and not defer_refill
-    below = below_watermark(stash, state.active, cfg.stash_watermark) if S \
-        else torch.zeros((L,), dtype=torch.bool, device=dev)
-    if refill:
-        t_refill = burst.refill(kv, lane_ids, cfg.stash_refill, where=below)
+    t_malloc = burst.malloc(handle, lane_ids, 1, where=missed)
+    below = below_watermark(stash, active, cfg.stash_watermark) if S \
+        else none
+    t_refill = burst.refill(handle, lane_ids, cfg.stash_refill,
+                            where=below) if refill else None
     if window is not None and not defer_refill:
-        burst.free(kv, lane_ids, dead_block, where=overflow)
+        burst.free(handle, lane_ids, dead_block, where=overflow)
+    return _TenantStep(handle, block_tables, stash, popped, got_stash, missed,
+                       below, overflow, dead_block, recycle, t_malloc,
+                       t_refill)
+
+
+def _finish_tenant(cfg: PagedKVConfig, st: _TenantStep, res, pos):
+    """Install a tenant's boundary pages and refill grants after the
+    burst: ``(block_tables, stash, got, e_got, refill_failed)``."""
+    L = cfg.max_lanes
+    lane_ids = torch.arange(L, dtype=I32, device=pos.device)
+    new_blocks = res.blocks_for(st.t_malloc)[:, 0]
+    e_got = res.ok_for(st.t_malloc) & st.missed
+    got = st.got_stash | e_got
+    page_for_lane = torch.where(st.got_stash, st.popped, new_blocks)
+    tbl_idx = (pos // cfg.page_size).clamp(0, cfg.max_pages_per_lane - 1)
+    block_tables = set_drop(st.block_tables,
+                            (torch.where(got, lane_ids, L), tbl_idx),
+                            torch.where(got, page_for_lane, NO_BLOCK))
+    stash = st.stash
+    if st.t_refill is not None:
+        r_got = res.ok_for(st.t_refill) & st.below
+        stash = stash_push_batch(
+            stash, res.blocks_for(st.t_refill)[:, :cfg.stash_refill],
+            cfg.stash_refill, r_got)
+        refill_failed = (st.below & ~r_got).sum(dtype=I32)
+    else:
+        # deferred refills fail (benignly) at the window commit, not here
+        refill_failed = torch.zeros((), dtype=I32, device=pos.device)
+    return block_tables, stash, got, e_got, refill_failed
+
+
+def _dst_page(cfg: PagedKVConfig, block_tables, writable, pos, sink: int):
+    """Each lane's page for this token (``sink`` where it is not
+    written)."""
+    lane_ids = torch.arange(cfg.max_lanes, device=pos.device)
+    tbl_idx = (pos // cfg.page_size).clamp(0, cfg.max_pages_per_lane - 1)
+    cur = block_tables[lane_ids, tbl_idx.long()]
+    return torch.where(writable & (cur != NO_BLOCK), cur, sink).long()
+
+
+def _append_metadata(cfg: PagedKVConfig, state: PagedKVState,
+                     tenants: PagedTenants, defer_refill: bool,
+                     window: Optional[int]):
+    """:func:`decode_append`'s allocator and table work: ``(state without
+    pools, the kv_pages pages, the window tenant's pages (``None`` but in
+    a split cache), the offsets to write, DecodeStats[,
+    PendingDecodeOps])``."""
+    ps = cfg.page_size
+    S = cfg.stash_size
+    pos = state.seq_lens
+    needs_page = state.active & (pos % ps == 0) \
+        & (pos // ps < cfg.max_pages_per_lane)
+    refill = bool(S) and not defer_refill
+    svc = tenants.service
+    burst = svc.new_burst()
+    kv = _stage_tenant(cfg, tenants.kv, state.block_tables, state.stash,
+                       state.active, pos, needs_page, burst, refill,
+                       defer_refill, window)
+    steps = [kv]
+    if state.win is not None:
+        steps.append(_stage_tenant(
+            cfg, tenants.window, state.win.block_tables, state.win.stash,
+            state.active, pos, needs_page, burst, refill, defer_refill,
+            cfg.split_window))
     alloc, res = svc.commit(state.alloc, burst,
                             max_blocks_per_req=max(
                                 1, cfg.stash_refill if refill else 1),
                             gated=True, kind="decode")
-
-    new_blocks = res.blocks_for(t_malloc)[:, 0]
-    e_got = res.ok_for(t_malloc) & missed
-    got = got_stash | e_got
-    page_for_lane = torch.where(got_stash, popped, new_blocks)
-    tbl_idx = (pos // ps).clamp(0, cfg.max_pages_per_lane - 1)
-    block_tables = set_drop(block_tables,
-                            (torch.where(got, lane_ids, L), tbl_idx),
-                            torch.where(got, page_for_lane, NO_BLOCK))
-
-    if refill:
-        r_got = res.ok_for(t_refill) & below
-        stash = stash_push_batch(
-            stash, res.blocks_for(t_refill)[:, :cfg.stash_refill],
-            cfg.stash_refill, r_got)
-        refill_failed = (below & ~r_got).sum(dtype=I32)
-    else:
-        # deferred refills fail (benignly) at the window commit, not here
-        refill_failed = torch.zeros((), dtype=I32, device=dev)
-
-    writable = state.active & (got | ~needs_page)
-    cur_block = block_tables[lane_ids.long(), tbl_idx.long()]
+    done = [_finish_tenant(cfg, st, res, pos) for st in steps]
+    writable = state.active
+    for _, _, got, _, _ in done:
+        writable = writable & (got | ~needs_page)
     offset = (pos % ps).long()
-    dst_page = torch.where(writable & (cur_block != NO_BLOCK), cur_block,
-                           cfg.num_pages).long()
-
-    new = state._replace(alloc=alloc, block_tables=block_tables,
+    dst_page = _dst_page(cfg, done[0][0], writable, pos, cfg.num_pages)
+    new = state._replace(alloc=alloc, block_tables=done[0][0],
                          seq_lens=torch.where(writable, pos + 1, pos),
-                         stash=stash)
+                         stash=done[0][1])
+    win_page = None
+    if state.win is not None:
+        win_page = _dst_page(cfg, done[1][0], writable, pos,
+                             cfg.window_pages)
+        new = new._replace(win=state.win._replace(block_tables=done[1][0],
+                                                  stash=done[1][1]))
+    _count_held(cfg, new, steps)
+    def total(parts):
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
     dstats = DecodeStats(
         core=res.stats.core,
         tenant=res.stats.per_tenant,
-        failed=(missed & ~e_got).sum(dtype=I32),
-        refill_failed=refill_failed,
-        stash_hits=got_stash.sum(dtype=I32),
-        stash_misses=missed.sum(dtype=I32),
+        failed=total([(st.missed & ~d[3]).sum(dtype=I32)
+                      for st, d in zip(steps, done)]),
+        refill_failed=total([d[4] for d in done]),
+        stash_hits=total([st.got_stash.sum(dtype=I32) for st in steps]),
+        stash_misses=total([st.missed.sum(dtype=I32) for st in steps]),
         bursts=res.live,
-        stash_depth_hist=stash_depth_histogram(cfg, stash, state.active),
+        stash_depth_hist=stash_depth_histogram(cfg, new.stash, state.active),
         queue_live=res.stats.queue_live,
         queue_capacity=res.stats.queue_capacity,
     )
     if not defer_refill:
-        return new, dst_page, offset, dstats
-    if window is None:                   # nothing recycles: no flushes
-        overflow = torch.zeros_like(below)
-        dead_block = torch.full_like(pos, NO_BLOCK)
-    return new, dst_page, offset, dstats, PendingDecodeOps(
-        below=below, flush_mask=overflow,
-        flush_blocks=torch.where(overflow, dead_block, NO_BLOCK))
+        return new, dst_page, win_page, offset, dstats
+    pend = [PendingDecodeOps(below=st.below, flush_mask=st.overflow,
+                             flush_blocks=torch.where(st.overflow,
+                                                      st.dead_block,
+                                                      NO_BLOCK))
+            for st in steps]
+    if len(pend) > 1:
+        pend[0] = pend[0]._replace(window=pend[1])
+    return new, dst_page, win_page, offset, dstats, pend[0]
+
+
+def _count_held(cfg: PagedKVConfig, state: PagedKVState,
+                steps: list) -> None:
+    """One decode step's :data:`~repro_torch.tracing.COUNTERS` on a split
+    cache (no other cache counts: nothing reads it there): tokens the
+    active lanes hold, each tenant's pages and bytes mapped for them, and
+    the pages the window tenant recycled."""
+    if state.win is None or state.seq_lens.device.type == "meta":
+        return
+    act = state.active
+    full, win = (((tbl != NO_BLOCK) & act[:, None]).sum(dtype=torch.int64)
+                 for tbl in (state.block_tables, state.win.block_tables))
+    COUNTERS.add_device(
+        ("kv.held_tokens", "kv_pages.held_pages", "kv_pages.held_bytes",
+         "kv_window_pages.held_pages", "kv_window_pages.held_bytes",
+         "kv_window_pages.recycled"),
+        torch.stack([torch.where(act, state.seq_lens, 0).sum(
+            dtype=torch.int64),
+            full, full * page_bytes(cfg, cfg.num_kv_layers),
+            win, win * page_bytes(cfg, len(cfg.window_layers)),
+            steps[1].recycle.sum(dtype=torch.int64)]))
 
 
 def empty_decode_stats(cfg: PagedKVConfig, tenants: PagedTenants
@@ -935,9 +1208,15 @@ def stage_single_frees(tenants: PagedTenants, burst, blocks) -> None:
 def clear_released_lanes(state: PagedKVState,
                          release_mask: torch.Tensor) -> PagedKVState:
     """Clear released lanes' metadata rows (block table, seq_lens, active,
-    state and scratch slots, stash row); their blocks return through
-    FREE_ALL."""
+    state and scratch slots, stash row, and a split cache's window table
+    and stash rows); their blocks return through FREE_ALL."""
     keep = ~release_mask
+    win = state.win
+    if win is not None:
+        win = win._replace(
+            block_tables=torch.where(release_mask[:, None], NO_BLOCK,
+                                     win.block_tables),
+            stash=stash_clear(win.stash, release_mask))
     return state._replace(
         block_tables=torch.where(release_mask[:, None], NO_BLOCK,
                                  state.block_tables),
@@ -946,6 +1225,7 @@ def clear_released_lanes(state: PagedKVState,
         stash=stash_clear(state.stash, release_mask),
         scratch_slot=torch.where(keep, state.scratch_slot, NO_BLOCK),
         state_slot=torch.where(keep, state.state_slot, NO_BLOCK),
+        win=win,
     )
 
 
@@ -1194,7 +1474,11 @@ def validate_paged_kv(cfg: PagedKVConfig, state: PagedKVState,
     referenced, prefix cache}, and its refcount equals its block-table
     in-degree (an aliased page once per lane) plus its cache and stash
     membership.  On a shared multi-engine state I1–I4 cover every shard's
-    classes and I5/I6 this shard's KV class."""
+    classes and I5/I6 this shard's KV class.  A split cache's window
+    tenant gets I5/I6 over its own tables and stash (no prefix cache)."""
+    if state.win is not None:
+        _validate_tenant(state, tenants, tenants.window,
+                         state.win.block_tables, state.win.stash)
     expected = np.zeros((state.alloc.max_capacity,), np.int64)
     tbl = state.block_tables.cpu().numpy()
     np.add.at(expected, tbl[tbl != NO_BLOCK], 1)
@@ -1215,3 +1499,22 @@ def validate_paged_kv(cfg: PagedKVConfig, state: PagedKVState,
         cache_pages=cache.blocks() if cache is not None else None,
         cache_owner=CACHE_OWNER if cache is not None else None,
     )
+
+
+def _validate_tenant(state: PagedKVState, tenants: PagedTenants,
+                     handle: TenantHandle, block_tables: torch.Tensor,
+                     stash: LaneStashState) -> None:
+    """I1–I6 with one KV tenant's tables and stash as the I5 partition."""
+    tbl = block_tables.cpu().numpy()
+    sp = stash.pages.cpu().numpy()
+    sd = stash.depth.cpu().numpy()
+    expected = np.zeros((state.alloc.max_capacity,), np.int64)
+    np.add.at(expected, tbl[tbl != NO_BLOCK], 1)
+    for lane in range(sp.shape[0]):
+        np.add.at(expected, sp[lane, :int(sd[lane])], 1)
+    in_use = np.zeros((handle.capacity,), bool)
+    in_use[tbl[tbl != NO_BLOCK]] = True
+    validate_freelist(state.alloc, stash_pages=sp, stash_depth=sd,
+                      in_use=in_use, stash_class=handle.size_class,
+                      tenant_names=tenants.service.tenant_names(),
+                      refcount_expected=expected)

@@ -7,7 +7,7 @@ kernel module first must not pull in the models above it.
 __all__ = ["IGNORE_LABEL", "abstract_params", "forward_train", "init_params",
            "input_specs", "jax_layout", "loss_fn", "make_paged_config",
            "params_from_numpy", "params_to_numpy", "port_layout",
-           "synth_batch"]
+           "splits_window", "synth_batch"]
 
 
 def __getattr__(name):

@@ -12,7 +12,11 @@ kernel reads the layer's pages in place; on the CPU the plain version
 gathers them and runs ``mea_attention``, as the JAX decode does.  The
 moe family routes every lane's row, inactive lanes' too, through its MoE
 layer as one dispatch group (capacity over ``max_lanes`` tokens), as the
-JAX decode does.
+JAX decode does.  On a split cache (``PagedKVState.win``) each windowed
+layer reads its window tenant's pool and tables, each global layer
+``kv_pages``, and the step returns the global layers' K/V first; a
+global layer of a YaRN config rotates with YaRN
+(:func:`~repro_torch.models.transformer.layer_yarns`).
 
 The hybrid family (zamba2) runs a Mamba2 step on every layer, carrying
 the lanes' :class:`RecurrentState`, and the shared attention block on the
@@ -43,7 +47,8 @@ from . import rwkv6 as rw
 from .attention import FULL_WINDOW, mea_attention
 from .layers import apply_norm, apply_rope, embed, out_project, qkv_project
 from .transformer import (AttnBlock, cross_residual, hybrid_attn_flags,
-                          hybrid_kv_slots, layer_windows, mlp_residual)
+                          hybrid_kv_slots, layer_windows, layer_yarns,
+                          mlp_residual)
 
 
 class RecurrentState(NamedTuple):
@@ -113,20 +118,26 @@ def paged_decode_attention(
 
 
 def _attn_layer_step(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
-                     paged: PagedKVState, kv_layer: int, window: int):
+                     paged: PagedKVState, kv_layer: int, window: int,
+                     yarn=None, in_window_pool: bool = False):
     """One attention block for one new token per lane; returns ``(x, k,
-    v)`` with the token's K/V ``[B, KV, hd]``."""
+    v)`` with the token's K/V ``[B, KV, hd]``.  ``kv_layer`` indexes the
+    pool the layer reads: ``kv_pages``, or with ``in_window_pool`` the
+    split cache's window tenant."""
     hd = cfg.resolved_head_dim
     positions = paged.seq_lens
     h = apply_norm(cfg.norm, lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
                           cfg.num_kv_heads, hd, lp.bq, lp.bk, lp.bv)
     if cfg.family != "audio":
-        q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
-        k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
+        q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta,
+                       yarn)[:, 0]
+        k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta,
+                       yarn)[:, 0]
+    pool = paged.win if in_window_pool else paged
     attn = paged_decode_attention_op(
-        q, paged.k_pages[:, kv_layer], paged.v_pages[:, kv_layer],
-        paged.block_tables, paged.seq_lens, window, k_self=k, v_self=v,
+        q, pool.k_pages[:, kv_layer], pool.v_pages[:, kv_layer],
+        pool.block_tables, paged.seq_lens, window, k_self=k, v_self=v,
         active=paged.active)
     x = x + out_project(lp.wo, attn[:, None])[:, 0]
     return mlp_residual(cfg, lp, x), k, v
@@ -157,7 +168,8 @@ def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
     """Run the layer stack for one token per lane.
 
     Returns ``(hidden [B, d], (new_k, new_v) or None, new_rec)`` with K/V
-    ``[B, L_kv, KV, hd]`` (``None`` for the attention-free ssm family);
+    ``[B, L_kv, KV, hd]`` (``None`` for the attention-free ssm family; on
+    a split cache the global layers first, then the windowed ones);
     ``new_rec`` is ``None`` for attention families.  The audio family
     reads ``enc_out [B, F, d]``.  ``hints`` puts the embedded lanes over
     the data axes (the gathered KV's hint is the paged read's, ambient).
@@ -189,14 +201,20 @@ def decode_hidden(params, cfg: ArchConfig, paged: PagedKVState,
     else:
         if cfg.family == "audio":
             x = x + params.dec_pos[paged.seq_lens.long()].to(x.dtype)
-        for li, (lp, window) in enumerate(zip(params.layers,
-                                              layer_windows(cfg))):
-            x, k, v = _attn_layer_step(cfg, lp, x, paged, li, window)
+        split = paged.win is not None
+        wks, wvs = [], []
+        for li, (lp, window, yarn) in enumerate(zip(
+                params.layers, layer_windows(cfg), layer_yarns(cfg))):
+            windowed = split and window != FULL_WINDOW
+            slot = len(wks) if windowed else len(ks)
+            x, k, v = _attn_layer_step(cfg, lp, x, paged, slot if split
+                                       else li, window, yarn, windowed)
             if cfg.family == "audio":
                 x = cross_residual(cfg, params.cross_layers[li], x[:, None],
                                    enc_out)[:, 0]
-            ks.append(k)
-            vs.append(v)
+            (wks if windowed else ks).append(k)
+            (wvs if windowed else vs).append(v)
+        ks, vs = ks + wks, vs + wvs
         new_rec = None
     return x, (torch.stack(ks, dim=1), torch.stack(vs, dim=1)), new_rec
 

@@ -11,7 +11,7 @@ so parameters carry across unchanged.  Initializers draw from an explicit
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,22 +72,63 @@ def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
 
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device: torch.device) -> torch.Tensor:
-    """Inverse frequencies, shape ``[head_dim // 2]`` (f32)."""
+class YaRN(NamedTuple):
+    """YaRN's stretch of the RoPE frequencies (a global layer's, where a
+    config sets ``yarn_factor``): the low frequencies are divided by
+    ``factor``, the high ones kept, a linear ramp between, and cos and sin
+    scaled by ``attention_factor``."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float
+    beta_slow: float
+    attention_factor: float
+
+
+def yarn_bounds(head_dim: int, theta: float, yarn: YaRN
+                ) -> tuple[float, float]:
+    """``(low, high)``: the frequency indices where YaRN's ramp starts and
+    ends, ``floor``/``ceil`` of ``d ln(L0 / (2 pi beta)) / (2 ln theta)``
+    for ``beta_fast`` and ``beta_slow``, clamped to ``[0, d - 1]`` (a
+    zero-width ramp widened by 0.001)."""
+    def dim(beta: float) -> float:
+        return head_dim * math.log(yarn.original_max_position
+                                   / (beta * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim(yarn.beta_slow)), head_dim - 1)
+    return float(low), float(high if high != low else high + 0.001)
+
+
+def rope_frequencies(head_dim: int, theta: float, device: torch.device,
+                     yarn: Optional[YaRN] = None) -> torch.Tensor:
+    """Inverse frequencies, shape ``[head_dim // 2]`` (f32): ``theta **
+    (-2i / d)``, or with ``yarn`` ramped from those (below ``low``) to
+    them over ``factor`` (above ``high``)."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
-    return 1.0 / (theta ** exponents)
+    inv = 1.0 / (theta ** exponents)
+    if yarn is None:
+        return inv
+    low, high = yarn_bounds(head_dim, theta, yarn)
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+    return inv * (1.0 - ramp) + inv / yarn.factor * ramp
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """Rotate-half RoPE; ``x [..., T, H, hd]``, ``positions [..., T]``."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: Optional[YaRN] = None) -> torch.Tensor:
+    """Rotate-half RoPE; ``x [..., T, H, hd]``, ``positions [..., T]``;
+    with ``yarn`` at its frequencies, cos and sin scaled by its
+    ``attention_factor``."""
     hd = x.shape[-1]
-    inv = rope_frequencies(hd, theta, x.device)
+    inv = rope_frequencies(hd, theta, x.device, yarn)
     angles = positions[..., None].float() * inv                  # [..., T, hd/2]
     sin = torch.sin(angles)[..., None, :]
     cos = torch.cos(angles)[..., None, :]
+    if yarn is not None:
+        sin = sin * yarn.attention_factor
+        cos = cos * yarn.attention_factor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -18,6 +18,7 @@
   input_specs(cfg, shape_name)           -- batch stand-ins on ``meta``
   synth_batch(cfg, batch, seq, seed)     -- a small real batch
   make_paged_config(cfg, seq, lanes)     -- PagedKVConfig for a decode shape
+  splits_window(cfg)                     -- whether that cache splits
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from ..core.lane_stash import autotune_stash
 from ..core.paged_kv import PagedKVConfig
 from ..device import DeviceLike, resolve_device
 from .losses import softmax_cross_entropy
-from .transformer import (forward, init_lm_params, lm_class,
+from .attention import FULL_WINDOW
+from .transformer import (forward, init_lm_params, layer_windows, lm_class,
                           recycle_window)
 
 IGNORE_LABEL = -1
@@ -258,6 +260,18 @@ def synth_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,
     return {k: v.to(dev) for k, v in out.items()}
 
 
+def splits_window(cfg: ArchConfig) -> bool:
+    """Whether :func:`make_paged_config` splits ``cfg``'s cache: a
+    ``local_global`` config that asks for it (``kv_split_window``), with a
+    window and layers of both kinds (a smoke reduction to its first two
+    layers has no global one).  gemma3-1b does not ask: its one-pool
+    allocator state is held to the JAX engine's bit for bit."""
+    windows = layer_windows(cfg)
+    return cfg.kv_split_window and cfg.attn_pattern == "local_global" \
+        and bool(cfg.window) and FULL_WINDOW in windows \
+        and windows.count(FULL_WINDOW) < len(windows)
+
+
 def make_paged_config(
     cfg: ArchConfig,
     seq_len: int,
@@ -275,9 +289,18 @@ def make_paged_config(
     recycles the pages that slide out of the window, so the pool holds
     ``ceil(window / page_size) + 2`` live pages a lane and the stash is
     tuned to the window's recycling cadence; the block table still
-    addresses all ``seq_len`` tokens.  ``local_global`` sizes as full
-    attention: its global layers keep every page live, so no page is
-    recycled and the stash is tuned without a window.
+    addresses all ``seq_len`` tokens.
+
+    ``local_global`` splits the cache where :func:`splits_window` says so:
+    ``kv_pages`` holds the global layers' K/V, every page live, sized and
+    stash-tuned as full attention; the windowed layers' K/V goes to the
+    window tenant, which recycles past the window and holds
+    ``ceil(window / page_size) + 2`` live pages and a stash of the same
+    size a lane (``window_pages``, rounded up to a multiple of 512 too).
+    Unsplit, ``local_global`` sizes as full attention over every layer in
+    one pool: its global layers keep every page live, so no page is
+    recycled and the stash is tuned without a window (gemma3-1b, as the
+    JAX package sizes it).
 
     Stash knobs left ``None`` are derived by :func:`autotune_stash`;
     ``scratch_slots=None`` means one workspace slot per lane.  The pool is
@@ -288,6 +311,7 @@ def make_paged_config(
     and one KV layer that no step writes, as in the JAX package.
     """
     pages_per_lane_addr = math.ceil((seq_len + 1) / page_size)
+    split = splits_window(cfg)
     recycle = recycle_window(cfg)
     live_pages = pages_per_lane_addr if recycle is None \
         else math.ceil(recycle / page_size) + 2
@@ -313,8 +337,16 @@ def make_paged_config(
                 stash_size = max(stash_size, stash_watermark + stash_refill)
     num_pages = lanes * (live_pages + stash_size) + slack_pages
     num_pages = -(-num_pages // 512) * 512
+    window_layers: tuple = ()
+    window_pages = 0
+    if split:
+        window_layers = tuple(i for i, w in enumerate(layer_windows(cfg))
+                              if w != FULL_WINDOW)
+        window_pages = lanes * (math.ceil(cfg.window / page_size) + 2
+                                + stash_size) + slack_pages
+        window_pages = -(-window_pages // 512) * 512
     return PagedKVConfig(
-        num_kv_layers=max(cfg.num_attn_layers, 1),
+        num_kv_layers=max(cfg.num_attn_layers - len(window_layers), 1),
         kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim,
         page_size=page_size,
@@ -327,4 +359,7 @@ def make_paged_config(
         stash_watermark=stash_watermark,
         stash_refill=stash_refill,
         scratch_slots=lanes if scratch_slots is None else scratch_slots,
+        split_window=cfg.window if split else 0,
+        window_layers=window_layers,
+        window_pages=window_pages,
     )

@@ -64,7 +64,7 @@ from . import mamba2 as m2
 from . import moe as mo
 from . import rwkv6 as rw
 from .attention import FULL_WINDOW, mea_attention
-from .layers import (LayerNorm, apply_norm, apply_rope, bias_init,
+from .layers import (YaRN, LayerNorm, apply_norm, apply_rope, bias_init,
                      dense_init, embed, init_embedding, init_norm, mlp_apply,
                      out_project, qkv_project, unembed)
 
@@ -118,9 +118,26 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
     return [FULL_WINDOW] * n
 
 
+def layer_yarns(cfg: ArchConfig) -> list[Optional[YaRN]]:
+    """Each attention layer's YaRN stretch of its RoPE: where the config
+    sets ``yarn_factor``, the global layers' (``FULL_WINDOW`` in
+    :func:`layer_windows`; the windowed layers keep plain RoPE at the same
+    theta), else ``None`` on every layer."""
+    if not cfg.yarn_factor:
+        return [None] * cfg.num_attn_layers
+    yarn = YaRN(cfg.yarn_factor, cfg.yarn_original_max_position,
+                cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+                cfg.yarn_attention_factor)
+    return [yarn if w == FULL_WINDOW else None for w in layer_windows(cfg)]
+
+
 def recycle_window(cfg: ArchConfig) -> Optional[int]:
-    """The page-recycling window: ``cfg.window`` when every attention
-    layer is windowed (``swa``), else ``None``."""
+    """The window past which ONE paged pool recycles its pages:
+    ``cfg.window`` when every attention layer is windowed (``swa``), else
+    ``None``.  A ``local_global`` model whose cache splits
+    (``PagedKVConfig.split_window``) recycles its windowed layers' pages in
+    a pool of their own, past ``cfg.window``, and keeps its global layers'
+    pages all live."""
     if cfg.attn_pattern == "swa" and cfg.window:
         return cfg.window
     return None
@@ -266,15 +283,16 @@ class DenseLM(_LM):
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         ks, vs = [], []
         hints = current_hints()
-        for li, (lp, window) in enumerate(zip(self.layers,
-                                              layer_windows(self.cfg))):
+        for li, (lp, window, yarn) in enumerate(zip(
+                self.layers, layer_windows(self.cfg),
+                layer_yarns(self.cfg))):
             pkv = None if prefix_kv is None \
                 else (prefix_kv[0][li], prefix_kv[1][li])
             x = hints.residual(x)
             x, (k, v) = _run_block(remat, partial(
                 _attn_block_seq, self.cfg, lp, window=window,
                 q_offset=pos_offset, prefix_kv=pkv,
-                differentiable=differentiable), x)
+                differentiable=differentiable, yarn=yarn), x)
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -385,7 +403,8 @@ def _hybrid_layer(cfg: ArchConfig, spec: m2.Mamba2Spec, layer: HybridLayer,
 
 def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
                     window: int, q_offset: int = 0, prefix_kv=None,
-                    causal: bool = True, differentiable: bool = False):
+                    causal: bool = True, differentiable: bool = False,
+                    yarn: Optional[YaRN] = None):
     """One block over a full sequence; returns ``(x, (k, v))``.
 
     The sequence sits at absolute positions ``[q_offset, q_offset + T)``
@@ -394,7 +413,8 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     cached keys of positions ``[0, P)`` with ``P == q_offset``, which the
     queries attend over before their own.  The returned ``(k, v)`` cover
     the sequence alone.  ``causal=False`` is whisper's bidirectional
-    encoder block.  ``differentiable``: :func:`attention`'s."""
+    encoder block.  ``differentiable``: :func:`attention`'s; ``yarn``: the
+    layer's RoPE stretch (:func:`layer_yarns`)."""
     hd = cfg.resolved_head_dim
     h = apply_norm(cfg.norm, lp.ln_attn, x)
     q, k, v = qkv_project(lp.wq, lp.wk, lp.wv, h, cfg.num_heads,
@@ -402,8 +422,8 @@ def _attn_block_seq(cfg: ArchConfig, lp: AttnBlock, x: torch.Tensor,
     if cfg.family != "audio":
         positions = q_offset + torch.arange(x.shape[1], dtype=torch.int32,
                                             device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, yarn)
+        k = apply_rope(k, positions, cfg.rope_theta, yarn)
     if prefix_kv is not None:
         k_all = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)

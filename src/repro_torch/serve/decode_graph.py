@@ -30,7 +30,10 @@ copied in before the first replay.
 **Launch counters.**  ``Kernel.launches`` counts in Python, which a
 replay does not run: the capture records each kernel's launches inside
 the graph and undoes the warm-up's and the capture's own increments (they
-serve no lane), and each replay adds the recorded counts.
+serve no lane), and each replay adds the recorded counts.  The host
+counts of :data:`~repro_torch.tracing.COUNTERS` (the MoE rows) are
+replayed the same way; its device counts are additions the graph itself
+replays.
 
 Outputs other than the state (logits, ``DecodeStats``, the deferred
 refills) live in the graph's memory and are overwritten by the next
@@ -45,6 +48,7 @@ import torch
 from ..kernels.flash_attention.ops import FLASH_KERNEL
 from ..kernels.paged_attention.ops import PAGED_KERNEL
 from ..kernels.support_core.ops import KERNEL
+from ..tracing import COUNTERS
 from .serve_step import ServeState
 
 #: the kernels a decode step can launch (whisper's cross-attention is the
@@ -74,17 +78,29 @@ def _map(fn, tree):
     return type(tree)(*(_map(fn, part) for part in tree))
 
 
+def _pools(state: ServeState) -> tuple:
+    """The K/V pools of ``state``, a split cache's window tenant's too."""
+    paged = state.paged
+    win = () if paged.win is None else (paged.win.k_pages, paged.win.v_pages)
+    return (paged.k_pages, paged.v_pages, *win)
+
+
 def static_state(state: ServeState) -> ServeState:
     """The graph's buffers: a copy of ``state`` with every lane inactive,
-    sharing its K/V pools and encoder outputs."""
-    paged = state.paged
-    own = state._replace(paged=paged._replace(k_pages=None, v_pages=None),
-                         enc_out=None)
+    sharing its K/V pools (a split cache's window pools too) and encoder
+    outputs."""
+    paged, win = state.paged, state.paged.win
+    own = state._replace(paged=paged._replace(
+        k_pages=None, v_pages=None, win=None if win is None
+        else win._replace(k_pages=None, v_pages=None)), enc_out=None)
     static = _map(lambda t: None if t is None else t.clone(), own)
     static.paged.active.zero_()
+    swin = static.paged.win
+    if win is not None:
+        swin = swin._replace(k_pages=win.k_pages, v_pages=win.v_pages)
     return static._replace(
         paged=static.paged._replace(k_pages=paged.k_pages,
-                                    v_pages=paged.v_pages),
+                                    v_pages=paged.v_pages, win=swin),
         enc_out=state.enc_out)
 
 
@@ -132,7 +148,7 @@ class DecodeGraph:
 
     def __init__(self, step, params, state: ServeState):
         self.static = static_state(state)
-        self._pools = (self.static.paged.k_pages, self.static.paged.v_pages)
+        self._pools = _pools(self.static)
         self._graph = CudaGraph()
         bufs = _leaves(self.static)
 
@@ -143,13 +159,19 @@ class DecodeGraph:
                     dst.copy_(src)
             return out
 
-        c0 = _counts()
+        c0, h0 = _counts(), dict(COUNTERS.host)
         self._graph.warm(run)
-        c1 = _counts()
+        c1, h1 = _counts(), dict(COUNTERS.host)
         self.outputs = self._graph.capture(run)
         #: each step kernel's launches inside the graph
         self.launches = [b - a for a, b in zip(c1, _counts())]
+        #: the host counts one step adds
+        self.host_counts = {k: v - h1.get(k, 0)
+                            for k, v in COUNTERS.host.items()
+                            if v != h1.get(k, 0)}
         _set_counts(c0)
+        COUNTERS.host.clear()
+        COUNTERS.host.update(h0)
 
     def copy_in(self, state: ServeState) -> int:
         """Copy into the buffers the leaves of ``state`` that are not
@@ -174,4 +196,6 @@ class DecodeGraph:
         self._graph.replay()
         for k, n in zip(STEP_KERNELS, self.launches):
             k.launches += n
+        for name, n in self.host_counts.items():
+            COUNTERS.add(name, n)
         return (self.static, *self.outputs), copied

@@ -8,6 +8,10 @@ releases lanes through FREE_ALL packets -- admit, append and release all
 speak the packet protocol.  On the card every one of those bursts is one
 launch of the support-core CUDA kernel.
 
+A split cache (``PagedKVConfig.split_window``, mellum2) admits, steps and
+releases both of its KV tenants on the same bursts; it has no prefix
+cache.
+
 An engine can be one shard of a multi-engine deployment
 (:mod:`repro_torch.serve.multi_engine`): it then runs on a namespaced
 tenant set of a shared service (``tenants=``, ``alloc_state=``) and
@@ -77,6 +81,7 @@ from ..distributed.hints import ShardingHints
 from ..distributed.sharding import (distribute_batch, distribute_state,
                                     local_tree)
 from ..models.decode import RecurrentState, init_recurrent_state
+from ..models.moe import dropless, spec_of
 from ..tracing import span, timed
 from .decode_graph import DecodeGraph, graph_engages
 from .scheduler import (SchedulerConfig, make_scheduler_config, pick_bucket,
@@ -246,6 +251,14 @@ def _run_admission(eng: "ServingEngine", sched, preemption: bool, after_op,
     return True
 
 
+def _clone_pending(p: pkv.PendingDecodeOps) -> pkv.PendingDecodeOps:
+    """A copy of a replay's deferred ops (the next replay overwrites the
+    graph's), a split cache's window tenant's included."""
+    return pkv.PendingDecodeOps(
+        p.below.clone(), p.flush_mask.clone(), p.flush_blocks.clone(),
+        None if p.window is None else _clone_pending(p.window))
+
+
 def _on_mesh(cfg: ArchConfig, mesh, decode, prefill):
     """The engine's decode and prefill on a one-rank mesh: the state and
     batch are placed on every call (no copy: each shard is whole) and the
@@ -321,6 +334,10 @@ class ServingEngine:
         self.defer_refill = defer_refill
         self.pending_ops: list = []
         self.cache: Optional[pkv.PrefixCache] = None
+        if prefix_cache and kvcfg.split_window:
+            raise NotImplementedError(
+                "a split cache (kvcfg.split_window) has no prefix cache: "
+                "its windowed layers keep only the window's pages")
         if prefix_cache:
             budget = cache_pages if cache_pages is not None \
                 else kvcfg.num_pages // 2
@@ -360,6 +377,13 @@ class ServingEngine:
         # the page-recycling window (swa), which the decode step's burst
         # and the multi-engine window's flushes follow
         self.window = recycle_window(cfg)
+        # a prefill pass pads its group to the scheduler's admit_width
+        # only where a capacity router couples its rows (a MoE that can
+        # drop tokens): there the padding rows take their share of the
+        # capacity, as in the JAX engine; elsewhere they are work that
+        # changes no real row, and the pass holds its prompts alone
+        self._pad_prefill = cfg.family == "moe" \
+            and not dropless(spec_of(cfg))
         self.stats = EngineStats()
         #: the last decode step's ``decode.step`` span (its wall time)
         self.last_step = None
@@ -519,6 +543,10 @@ class ServingEngine:
         recurrent family seeds with the last prompt token, which is no
         output, and publishes an empty mapping.
 
+        Each (bucket, patch rows, cached length) group is one prefill pass
+        over its prompts, padded to ``admit_width`` rows only where a
+        capacity router couples the rows (``self._pad_prefill``).
+
         An item with ``cached_len`` prefills only its uncached suffix, over
         the cached pages' K/V; copy mode writes the prefix K/V into the
         lane's own pages, alias mode splices the cached pages.  An item
@@ -555,7 +583,7 @@ class ServingEngine:
         lane_cached: dict[int, int] = {}
         for (bucket, n_prefix, cached_len), group in sorted(groups.items()):
             k = len(group)
-            width = max(W, k)
+            width = max(W, k) if self._pad_prefill else k
             toks = np.zeros((width, bucket), np.int32)
             lengths = np.ones((width,), np.int32)   # dummy rows: benign index
             for i, it in enumerate(group):
@@ -816,8 +844,7 @@ class ServingEngine:
         self.stats.decode_graph_replays += 1
         self.stats.decode_graph_copies += copied
         if self.defer_refill:
-            out = (*out[:-1], pkv.PendingDecodeOps(
-                *(t.clone() for t in out[-1])))
+            out = (*out[:-1], _clone_pending(out[-1]))
         return out
 
     def _read_step(self, stats) -> np.ndarray:

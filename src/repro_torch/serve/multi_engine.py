@@ -6,7 +6,8 @@ many client engines with no cross-engine metadata synchronisation.
 
 * **N engine shards, one service.**  Each
   :class:`~repro_torch.serve.engine.ServingEngine` registers its tenant set
-  (``kv_pages`` [+ ``state_slots``] [+ ``scratch``]) under its own
+  (``kv_pages`` [+ ``kv_window_pages``] [+ ``state_slots``] [+
+  ``scratch``]) under its own
   namespace (``"e0/kv_pages"`` ...) on one
   :class:`~repro_torch.alloc.AllocService`, whose single
   :class:`~repro_torch.core.freelist.FreeListState` carries every shard's
@@ -275,7 +276,9 @@ class MultiEngine:
         windowless one adds no NOP slots to the burst), completed lanes'
         FREE_ALLs, and cache victims and alias references as single frees
         (the FREE_ALLs skip ``CACHE_OWNER`` pages); then the refill grants
-        go into each shard's stash.  A flushed page of a lane released in
+        go into each shard's stash.  A split cache's window tenant adds its
+        own refills and flushes after the KV tenant's.  A flushed page of
+        a lane released in
         the same window is named by its free and its lane's FREE_ALL: the
         burst returns it once."""
         L = self.kvcfg.max_lanes
@@ -283,24 +286,32 @@ class MultiEngine:
         R = self.kvcfg.stash_refill
         lane_ids = torch.arange(L, dtype=I32, device=self.device)
         burst = self.service.new_burst()
-        installs = []                      # (shard, ticket, below mask)
+        installs = []              # (shard, ticket, below mask, window?)
         for i, eng in enumerate(self.engines):
             pend, eng.pending_ops = eng.pending_ops, []
-            if pend and S:
-                below = pend[0].below
-                for p in pend[1:]:
-                    below = below | p.below
-                # released lanes get no pages pushed into their cleared
-                # rows; a stash that refilled from its own pops since it
-                # dipped must still have room for the whole batch
-                paged = eng.state.paged
-                below = below & paged.active & (paged.stash.depth <= S - R)
-                installs.append((i, burst.refill(eng.tenants.kv, lane_ids, R,
-                                                 where=below), below))
-            if eng.window is not None:
-                for p in pend:               # NO_BLOCK entries become NOPs
-                    burst.free(eng.tenants.kv, lane_ids, p.flush_blocks,
-                               where=p.flush_mask)
+            paged = eng.state.paged
+            # (tenant, its stash, its steps' ops, whether it recycles)
+            tenants = [(eng.tenants.kv, paged.stash, pend,
+                        eng.window is not None)]
+            if paged.win is not None:
+                tenants.append((eng.tenants.window, paged.win.stash,
+                                [p.window for p in pend], True))
+            for handle, stash, ops, recycles in tenants:
+                if ops and S:
+                    below = ops[0].below
+                    for p in ops[1:]:
+                        below = below | p.below
+                    # released lanes get no pages pushed into their cleared
+                    # rows; a stash that refilled from its own pops since
+                    # it dipped must still have room for the whole batch
+                    below = below & paged.active & (stash.depth <= S - R)
+                    installs.append((i, burst.refill(handle, lane_ids, R,
+                                                     where=below), below,
+                                     handle is eng.tenants.window))
+                if recycles:
+                    for p in ops:            # NO_BLOCK entries become NOPs
+                        burst.free(handle, lane_ids, p.flush_blocks,
+                                   where=p.flush_mask)
             if released[i]:
                 valid = np.zeros((L,), bool)
                 valid[released[i]] = True
@@ -315,13 +326,19 @@ class MultiEngine:
             self.alloc, burst, max_blocks_per_req=max(1, R if S else 1),
             gated=True, kind="window")
         self.stats.window_bursts += 1
-        for i, t, below in installs:
+        for i, t, below, window in installs:
             eng = self._sync(i)
             got = res.ok_for(t) & below
-            stash = stash_push_batch(eng.state.paged.stash,
-                                     res.blocks_for(t)[:, :R], R, got)
-            eng.state = eng.state._replace(
-                paged=eng.state.paged._replace(stash=stash))
+            paged = eng.state.paged
+            if window:
+                stash = stash_push_batch(paged.win.stash,
+                                         res.blocks_for(t)[:, :R], R, got)
+                paged = paged._replace(win=paged.win._replace(stash=stash))
+            else:
+                stash = stash_push_batch(paged.stash,
+                                         res.blocks_for(t)[:, :R], R, got)
+                paged = paged._replace(stash=stash)
+            eng.state = eng.state._replace(paged=paged)
         live, queue_live, queue_cap = torch.stack(
             [res.live, res.stats.queue_live,
              res.stats.queue_capacity]).cpu().tolist()

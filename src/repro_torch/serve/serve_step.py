@@ -4,13 +4,15 @@
 The decode step reads paged KV through the block tables (the paged
 attention kernel on the card) and ends with exactly ONE support-core burst
 (``decode_append``), which under sliding-window attention also frees the
-pages that slid out of the window (:func:`recycle_window`); the prefill's
-attention is the flash kernel on the card.  The hybrid and ssm families
-also thread the lanes' recurrent state (``ServeState.rec``) through
-both.  The ssm family (rwkv6) has no K/V: its decode step issues no burst
-and only advances the active lanes' ``seq_lens``.  The audio family
-(whisper) keeps each lane's encoder output (``ServeState.enc_out``),
-which its prefill computes and its decode reads.
+pages that slid out of the window (:func:`recycle_window`), and on a split
+cache (``PagedKVConfig.split_window``) those of its window tenant; the
+prefill's attention is the flash kernel on the card.  The hybrid and
+ssm families also thread the lanes' recurrent state (``ServeState.rec``)
+through both.  The ssm family (rwkv6) has no K/V: its decode step issues
+no burst and only advances the active lanes' ``seq_lens``.  The audio
+family (whisper) keeps each lane's encoder output
+(``ServeState.enc_out``), which its prefill computes and its decode
+reads.
 
 Each shard of a multi-engine deployment builds its own decode step from
 its own tenant set.  The JAX package shares one step across shards (class
@@ -20,9 +22,14 @@ PyTorch compiles nothing, so there is nothing to share: the JAX package's
 counters have no counterpart here.  On the card each engine captures its
 own step as a CUDA graph (:mod:`repro_torch.serve.decode_graph`), so the
 step's shapes never depend on data and it never waits for the host.
+
+A MoE model's layers count as routed only the rows of real tokens
+(:func:`~repro_torch.models.moe.real_rows`): the decode step's active
+lanes, the prefill's prompt tokens.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,6 +42,7 @@ from ..distributed.hints import ShardingHints, use_hints
 from ..distributed.sharding import replicated
 from ..models.decode import (RecurrentState, decode_hidden, decode_logits,
                              init_recurrent_state)
+from ..models.moe import real_rows
 from ..models.transformer import forward, recycle_window
 from ..tracing import span
 
@@ -133,7 +141,8 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
     (rwkv6) issues none: it advances the active lanes' ``seq_lens`` and
     returns all-zero stats (and no deferred refill).  Under ``swa`` the
     burst also recycles the pages behind the window
-    (:func:`recycle_window`).
+    (:func:`recycle_window`); on a split cache it serves both KV tenants,
+    the window tenant recycling past ``kvcfg.split_window``.
 
     ``hints`` (a :class:`~repro_torch.distributed.hints.ShardingHints`
     over a mesh) runs the step on ``DTensor`` parameters and state placed
@@ -146,7 +155,7 @@ def make_decode_step(cfg: ArchConfig, kvcfg: PagedKVConfig,
             return _serve_step(params, state)
 
     def _serve_step(params, state: ServeState):
-        with span("decode.forward"):
+        with span("decode.forward"), real_rows(state.paged.active):
             hidden, new_kv, rec = decode_hidden(
                 params, cfg, state.paged, state.tokens, state.rec,
                 state.enc_out, hints=hints)
@@ -227,6 +236,17 @@ def make_family_prefill(cfg: ArchConfig,
             return PrefillResult(None, (ks.transpose(0, 1),
                                         vs.transpose(0, 1)),
                                  RecurrentState(ssm=ssm, conv=conv))
+        with _prompt_rows(toks, batch["lengths"]):
+            return _prefill_attn(params, batch)
+
+    def _prompt_rows(toks, lengths):
+        if cfg.family != "moe":
+            return contextlib.nullcontext()
+        pos = torch.arange(toks.shape[1], device=toks.device)
+        return real_rows(pos[None, :] < lengths[:, None])
+
+    def _prefill_attn(params, batch: dict) -> PrefillResult:
+        toks = batch["tokens"]
         pk = batch.get("prefix_k")
         last = batch["lengths"].long() - 1
         enc_out = None

@@ -32,8 +32,9 @@ admitted ``rids``), ``decode.step`` (``ServingEngine.step``; attr
 ``admit.readback`` (its host copies); ``decode.step`` holds
 ``decode.forward`` (the model, logits and argmax; in a MoE model one
 ``moe`` span per layer, each around a ``moe.route``: router, top-k and
-dispatch), ``decode.alloc`` (``decode_append``: the page write and the
-gated burst) and ``decode.readback`` (the step's host copies).  Every
+dispatch, and a ``moe.experts``: the experts' products),
+``decode.alloc`` (``decode_append``: the page write and the gated burst)
+and ``decode.readback`` (the step's host copies).  Every
 burst goes through ``AllocService.commit``, one ``alloc.commit`` span
 (attr ``kind``: ``admission``, ``decode``, ``release``, ``window`` or
 ``other``; :func:`summary` gives each kind a row of its own).
@@ -42,13 +43,35 @@ On the card the decode step is a CUDA graph replay
 (:mod:`repro_torch.serve.decode_graph`): ``decode.step`` then holds
 ``decode.replay`` (the copy-in and the replay's one launch) and
 ``decode.readback``, and ``decode.forward``, ``decode.alloc``,
-``alloc.commit[decode]``, ``moe`` and ``moe.route`` are opened once, at
-the capture in the first step, and never again.
+``alloc.commit[decode]``, ``moe``, ``moe.route`` and ``moe.experts``
+are opened once, at the capture in the first step, and never again.
+
+**Counters.**  :data:`COUNTERS` keeps process-wide counts that outlive
+the engines, as ``Kernel.launches`` does: the host adds to a name
+(:meth:`Counters.add`) where a count is known on the host, and the device
+to a vector of names (:meth:`Counters.add_device`) where it arises in the
+decode step, so that a CUDA graph replay, which runs no Python, still
+counts it; :meth:`Counters.read` copies the device's vectors to the host
+once.  A replay adds to the host counts what its capture counted
+(:mod:`repro_torch.serve.decode_graph`).  Always on; the ``meta`` device
+counts nothing.  The names: ``moe.rows_routed`` and ``moe.rows_computed``
+(token-expert rows the routers assigned to real tokens -- a decode
+step's active lanes, a prefill's prompt tokens, on the device there
+(:func:`repro_torch.models.moe.real_rows`) -- and every row the expert
+products computed, at every MoE layer call), and, on a split cache
+alone, summed over decode steps,
+``kv.held_tokens`` (tokens the active lanes hold) and for each KV tenant
+``<tenant>.held_pages`` and ``<tenant>.held_bytes`` (pages the active
+lanes' block tables map, and their K/V bytes), ``kv_window_pages.recycled``
+(pages a split cache's window tenant recycled) and, at admission,
+``<tenant>.admitted_pages`` (pages the admitted lanes' tables map).
 """
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
+
+import torch
 
 #: the recorder's clock (integer nanoseconds of ``time.perf_counter``)
 now_ns = time.perf_counter_ns
@@ -197,3 +220,40 @@ def format_summary(spans: list[SpanRecord]) -> str:
     lines += [f"{n:<24} {c:>7} {t:>11.3f} {x:>11.3f}"
               for n, c, t, x in summary(spans)]
     return "\n".join(lines)
+
+
+class Counters:
+    """Process-wide counts by name: host integers and int64 vectors on a
+    device, one per (names, device), which the decode step adds to in
+    place (a graph replay adds to the same vector)."""
+
+    def __init__(self):
+        self.host: dict[str, int] = {}
+        self.device: dict[tuple, torch.Tensor] = {}
+
+    def add(self, name: str, n: int) -> None:
+        self.host[name] = self.host.get(name, 0) + int(n)
+
+    def add_device(self, names: Sequence[str], values: torch.Tensor
+                   ) -> None:
+        """Add ``values [len(names)]`` (any integer or bool dtype) to the
+        device's vector of ``names``.  Nothing on ``meta``."""
+        if values.device.type == "meta":
+            return
+        key = (tuple(names), str(values.device))
+        acc = self.device.get(key)
+        if acc is None:
+            acc = self.device[key] = torch.zeros(
+                (len(names),), dtype=torch.int64, device=values.device)
+        acc.add_(values.to(torch.int64))
+
+    def read(self) -> dict[str, int]:
+        """Every count by name: the host's and the devices' summed."""
+        out = dict(self.host)
+        for (names, _), acc in self.device.items():
+            for name, v in zip(names, acc.cpu().tolist()):
+                out[name] = out.get(name, 0) + int(v)
+        return out
+
+
+COUNTERS = Counters()

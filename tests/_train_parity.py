@@ -20,7 +20,8 @@ import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.models import init_params as j_init_params
-from repro_torch.configs import ARCH_IDS, smoke_config
+from repro_torch.configs import smoke_config
+from _port_only import SHARED_ARCH_IDS
 
 REDUCED = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
            "gemma3-1b": dict(local_per_global=1),
@@ -32,7 +33,8 @@ REDUCED = {"zamba2-1.2b": dict(num_layers=4, attn_every=2),
 #: tokens a batch row holds: gemma3's and mixtral's windows of 64 bind at
 #: 128
 SEQ = {"gemma3-1b": 128, "mixtral-8x7b": 128}
-ARCHS = ARCH_IDS
+#: the archs the JAX package has (a port-only arch has no twin to train)
+ARCHS = SHARED_ARCH_IDS
 
 
 def configs(arch: str):

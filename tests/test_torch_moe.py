@@ -28,6 +28,7 @@ from repro.models import make_paged_config as j_make_paged_config  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.transformer import forward as j_forward  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402
+from _port_only import assert_config_is_jaxs  # noqa: E402
 from repro_torch.models import make_paged_config, params_from_numpy  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import forward, layer_windows  # noqa: E402
@@ -132,8 +133,8 @@ def test_expert_capacity_matches_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_jax(arch):
     jfull, tfull = j_get_config(arch), get_config(arch)
-    assert dataclasses.asdict(tfull) == dataclasses.asdict(jfull)
-    assert arch in ARCH_IDS and len(ARCH_IDS) == 10
+    assert_config_is_jaxs(tfull, jfull)
+    assert arch in ARCH_IDS and len(ARCH_IDS) == 11
     assert tfull.family == "moe"
     want = [jfull.window] * 32 if arch == "mixtral-8x7b" \
         else [1 << 30] * 32
@@ -147,16 +148,20 @@ def test_config_matches_jax(arch):
     (8192, 2, 64, dict(stash_size=4))])
 def test_make_paged_config_matches_jax(arch, seq_len, lanes, page_size, kw):
     """Field for field, the full configs and their smoke reductions
-    (window 64)."""
+    (window 64); the port's split-cache fields (which the JAX config
+    lacks) stay at their defaults: one pool."""
     for jcfg, cfg in ((j_get_config(arch), get_config(arch)),
                       (j_smoke_config(arch), smoke_config(arch))):
         jkv = j_make_paged_config(jcfg, seq_len, lanes, page_size=page_size,
                                   dtype=jnp.float32, **kw)
         tkv = make_paged_config(cfg, seq_len, lanes, page_size=page_size,
                                 dtype=torch.float32, **kw)
+        jnames = {f.name for f in dataclasses.fields(jkv)}
         for f in dataclasses.fields(tkv):
-            if f.name != "dtype":
+            if f.name in jnames and f.name != "dtype":
                 assert getattr(tkv, f.name) == getattr(jkv, f.name), f.name
+            elif f.name not in jnames:
+                assert getattr(tkv, f.name) == f.default, f.name
 
 
 def test_mixtral_paged_sizing_recycles():

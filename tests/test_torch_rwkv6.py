@@ -95,7 +95,7 @@ def test_config_matches_jax():
     assert (tfull.family, tfull.num_layers, tfull.d_model,
             tfull.resolved_head_dim, tfull.num_attn_layers) == \
         ("ssm", 32, 4096, 64, 0)
-    assert len(ARCH_IDS) == 10 and ARCH in ARCH_IDS
+    assert len(ARCH_IDS) == 11 and ARCH in ARCH_IDS
     assert smoke_config(ARCH).resolved_head_dim == 32   # hides hd 64
 
 

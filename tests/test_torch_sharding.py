@@ -32,7 +32,8 @@ from repro.models import input_specs as j_input_specs  # noqa: E402
 from repro.models import make_paged_config as j_make_paged_config  # noqa: E402
 from repro.serve.serve_step import \
     abstract_serve_state as j_abstract_serve_state  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from _port_only import SHARED_ARCH_IDS as ARCH_IDS  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402

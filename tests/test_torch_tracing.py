@@ -30,6 +30,7 @@ PARENTS = {
     "decode.readback": {"decode.step"},
     "moe": {"decode.forward", "admit.prefill"},
     "moe.route": {"moe"},
+    "moe.experts": {"moe"},
     "alloc.commit": {"window.admission", "decode.alloc", "window.commit"},
 }
 
@@ -150,7 +151,7 @@ def test_window_span_tree(moe_run):
                     and spans[k.parent].parent == i]
             assert len(moes) == me.cfg.num_layers
     routes = [s for s in spans if s.name == "moe.route"]
-    assert len(routes) == names.count("moe")
+    assert len(routes) == names.count("moe") == names.count("moe.experts")
     admitted = sorted(r for s in spans if s.name == "window.admission"
                       for r in s.attrs.get("rids", ()))
     assert admitted == list(range(5))

@@ -11,11 +11,12 @@ pytest.importorskip("torch")
 from repro.configs import smoke_config as j_smoke_config  # noqa: E402
 from repro.data.pipeline import DataPipeline as JDataPipeline  # noqa: E402
 from repro.data.pipeline import TokenSource as JTokenSource  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from _port_only import SHARED_ARCH_IDS  # noqa: E402
 from repro_torch.data import DataPipeline, TokenSource  # noqa: E402
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", SHARED_ARCH_IDS)
 @pytest.mark.parametrize("step,host", [(0, 0), (5, 1)])
 def test_batches_byte_identical_to_jax(arch, step, host):
     src, jsrc = TokenSource(smoke_config(arch), 3), \
